@@ -1,0 +1,334 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (piano_a2s_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure:
+  (a) device: require CUDA; print the card's name and power limit.
+  (b) build: compile the VQT kernel from piano_a2s_tpu_torch/csrc/ with
+      nvcc into build/piano_a2s_tpu_torch/.
+  (c) kernel vs plain: the VQT kernel against its plain PyTorch version on
+      the card, at 2 x 3 s and 16 x 12 s of noise (atol 1e-4 on the
+      magnitude, 1e-5 after log compression), with both times.
+  (d) full-width model on one 12 s clip, GPU against the port's CPU path
+      (random weights from seed 0): spectrogram within 1e-4, encoder
+      output within 1e-3, decode log-probs within 1e-3 up to the first
+      token divergence, which may only fall where the CPU's top-2
+      log-prob margin is below 1e-3.
+  (e) batch serving: Transcriber.transcribe_batch on 16 clips of 12 s.
+  (f) HTTP server: three WAV requests (one asking for Kern) through the
+      port's make_server.
+
+The kernels' launch counts are zeroed before (e) and read after (f): the
+main path must have launched every kernel. The line before the last holds
+the kernels' JSON record; the last line is the result object.
+"""
+
+import io
+import json
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+import wave
+
+import numpy as np
+
+TOL_MAG, TOL_LOG = 1e-4, 1e-5
+TOL_SPEC, TOL_ENC, TOL_LOGP, TOL_MARGIN = 1e-4, 1e-3, 1e-3, 1e-3
+N_CLIPS, CLIP_SAMPLES = 16, 192000
+
+
+def check(ok, msg):
+    if not ok:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def cuda_ms(fn, reps=20):
+    """Median milliseconds of fn() on the current stream (CUDA events)."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def noise(shape, amp, seed):
+    return (amp * np.random.RandomState(seed).randn(*shape)).astype(
+        np.float32)
+
+
+def phase_kernel_vs_plain(torch, tvqt, launches_of):
+    cfg = tvqt.VQTConfig()
+    dev = torch.device("cuda")
+    kernels = tvqt.filters(cfg, dev)
+    worst = 0.0
+    for shape, amp, seed in (((2, 48000), 0.2, 0),
+                             ((N_CLIPS, CLIP_SAMPLES), 0.1, 1)):
+        y = torch.tensor(noise(shape, amp, seed), device=dev)
+        before = launches_of()
+        got = tvqt.vqt_magnitude(y, kernels, cfg)
+        ref = tvqt.vqt_magnitude_torch(y, kernels, cfg)
+        torch.cuda.synchronize()
+        check(launches_of() == before + 1, "vqt kernel launched once")
+        check(got.shape == ref.shape == (shape[0], 1 + shape[1] // 160, 480),
+              f"vqt shape {tuple(got.shape)}")
+        err = (got - ref).abs().max().item()
+        err_log = (tvqt.log_compress(got) - tvqt.log_compress(ref)).abs() \
+            .max().item()
+        print(f"(c) vqt {shape}: max|kernel-plain| {err:.3e} (atol "
+              f"{TOL_MAG}), after log_compress {err_log:.3e} (atol "
+              f"{TOL_LOG})")
+        check(err < TOL_MAG and err_log < TOL_LOG, "kernel matches plain")
+        worst = max(worst, err)
+    # Turns: plain, kernel, kernel, plain.
+    t_plain = [cuda_ms(lambda: tvqt.vqt_magnitude_torch(y, kernels, cfg))]
+    t_kern = [cuda_ms(lambda: tvqt.vqt_magnitude(y, kernels, cfg))
+              for _ in range(2)]
+    t_plain.append(cuda_ms(lambda: tvqt.vqt_magnitude_torch(y, kernels,
+                                                            cfg)))
+    ms, plain_ms = float(np.median(t_kern)), float(np.median(t_plain))
+    gflop = 2 * 2 * N_CLIPS * (1 + CLIP_SAMPLES // 160) * 1120 * 480 / 1e9
+    print(f"(c) vqt ({N_CLIPS}, {CLIP_SAMPLES}): kernel {t_kern} ms, plain "
+          f"{t_plain} ms (median of 20 each); {gflop:.1f} GFLOP -> kernel "
+          f"{gflop / ms:.1f} TFLOP/s, plain {gflop / plain_ms:.1f} TFLOP/s")
+    return worst, ms, plain_ms
+
+
+def phase_gpu_vs_cpu(torch, cfg, tvqt, gpu, cpu):
+    audio = noise((1, CLIP_SAMPLES), 0.1, 2)
+    outs = {}
+    for name, tr in (("gpu", gpu), ("cpu", cpu)):
+        t0 = time.monotonic()
+        with torch.inference_mode():
+            x = torch.from_numpy(audio).to(tr.device)
+            spec = tvqt.get_vqt(x, tr.kernels, tr.vqt_cfg)
+            enc, hidden = tr.model.encode(spec[:, None])
+            ts, key, up, low, aux = tr.model.decoder(enc, hidden)
+        outs[name] = {k: v.cpu() for k, v in (
+            ("spec", spec), ("enc", enc), ("ts", ts), ("key", key),
+            ("up", up), ("low", low), ("up_tok", aux["upper_tokens"]),
+            ("low_tok", aux["lower_tokens"]),
+            ("up_len", aux["upper_lengths"]),
+            ("low_len", aux["lower_lengths"]))}
+        print(f"(d) {name}: one clip through the full-width model in "
+              f"{time.monotonic() - t0:.2f} s")
+    g, c = outs["gpu"], outs["cpu"]
+    for k in g:
+        if g[k].is_floating_point():
+            check(torch.isfinite(g[k]).all().item(), f"{k} finite")
+    check(g["spec"].shape == (1, 1 + CLIP_SAMPLES // 160, 480),
+          "spectrogram shape")
+    check(g["enc"].shape == (1, 1201, 2 * cfg.hidden_size), "encoder shape")
+    err_spec = (g["spec"] - c["spec"]).abs().max().item()
+    err_enc = (g["enc"] - c["enc"]).abs().max().item()
+    print(f"(d) spectrogram max|gpu-cpu| {err_spec:.3e} (atol {TOL_SPEC}); "
+          f"encoder {err_enc:.3e} (atol {TOL_ENC})")
+    check(err_spec < TOL_SPEC, "spectrogram agrees")
+    check(err_enc < TOL_ENC, "encoder output agrees")
+
+    steps, worst, diverged = 0, 0.0, None
+    for bar in range(cfg.max_bars):
+        if diverged is not None:
+            break  # later bars are conditioned on different tokens
+        for key_name in ("ts", "key"):
+            e = (g[key_name][0, bar] - c[key_name][0, bar]).abs().max()
+            worst = max(worst, e.item())
+        for staff in ("up", "low"):
+            gt, ct = g[f"{staff}_tok"][0, bar], c[f"{staff}_tok"][0, bar]
+            ran = int((c[staff][0, bar].abs().sum(-1) > 0).sum())
+            diff = (gt[:ran] != ct[:ran]).nonzero()
+            first = int(diff[0]) if len(diff) else None
+            stop = ran if first is None else first + 1
+            e = (g[staff][0, bar, :stop] - c[staff][0, bar, :stop]).abs()
+            worst = max(worst, e.max().item())
+            steps += stop
+            if first is not None:
+                top2 = c[staff][0, bar, first].topk(2).values
+                margin = (top2[0] - top2[1]).item()
+                print(f"(d) tokens diverge at bar {bar} staff {staff} step "
+                      f"{first}: cpu top-2 margin {margin:.3e}")
+                check(margin < TOL_MARGIN, "divergence only at a near-tie")
+                diverged = (bar, staff, first)
+    print(f"(d) decode: {steps} steps compared, max|gpu-cpu| log-prob "
+          f"{worst:.3e} (atol {TOL_LOGP}); first divergence: {diverged}")
+    check(steps > 0, "decode steps compared")
+    check(worst < TOL_LOGP, "decode log-probs agree")
+
+
+def stage_seconds(torch, tvqt, tr, clips):
+    """Host-clock seconds of each stage of one batch, each ended by a
+    synchronize (the decode loop syncs every step anyway)."""
+    out = {}
+    with torch.inference_mode():
+        t = time.monotonic()
+        x = torch.from_numpy(np.stack(clips)).to(tr.device)
+        torch.cuda.synchronize()
+        out["upload"], t = time.monotonic() - t, time.monotonic()
+        spec = tvqt.get_vqt(x, tr.kernels, tr.vqt_cfg)[:, None]
+        torch.cuda.synchronize()
+        out["vqt"], t = time.monotonic() - t, time.monotonic()
+        feats = tr.model.convstack(spec)
+        torch.cuda.synchronize()
+        out["convstack"], t = time.monotonic() - t, time.monotonic()
+        enc, hidden = tr.model.encoder(feats)
+        torch.cuda.synchronize()
+        out["encoder"], t = time.monotonic() - t, time.monotonic()
+        tr.model.decoder(enc, hidden)
+        torch.cuda.synchronize()
+        out["decoder"] = time.monotonic() - t
+    return out
+
+
+def wav_bytes(audio, sr):
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(audio, -1, 1) * 32767).astype("<i2")
+                      .tobytes())
+    return buf.getvalue()
+
+
+def phase_server(make_server, gpu):
+    httpd = make_server(gpu, "127.0.0.1", 0, max_batch=4, max_wait_ms=50)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    replies = [None] * 3
+
+    def client(i):
+        query = "?format=kern" if i == 2 else ""
+        body = wav_bytes(noise((4 * 16000,), 0.1, 10 + i), 16000)
+        req = urllib.request.Request(f"{url}/transcribe{query}", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            replies[i] = (r.status, r.read())
+
+    try:
+        t0 = time.monotonic()
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(3)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        dt = time.monotonic() - t0
+        with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+            health = json.load(r)
+        with urllib.request.urlopen(f"{url}/stats", timeout=30) as r:
+            stats = json.load(r)
+    finally:
+        httpd.shutdown()
+        httpd.service.close()
+        thread.join(timeout=30)
+    for i, reply in enumerate(replies):
+        check(reply is not None, f"request {i} answered")
+        status, body = reply
+        print(f"(f) request {i}{' (kern)' if i == 2 else ''}: HTTP {status}, "
+              f"{len(body)} bytes")
+        check(status == 200 and len(body) > 0, f"request {i} status/body")
+    check(replies[2][1].decode().startswith("!! upper staff"), "kern body")
+    check(len(json.loads(replies[0][1])["bars"]) == 5, "json bars")
+    print(f"(f) 3 requests answered in {dt:.2f} s; device "
+          f"{health['device']!r}; batches {stats['batches']}, clips "
+          f"{stats['clips']}")
+    check(not thread.is_alive(), "server thread stopped")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from piano_a2s_tpu_torch.infer import Transcriber
+    from piano_a2s_tpu_torch.models import ModelConfig, init_state_dict
+    from piano_a2s_tpu_torch.ops import _build
+    from piano_a2s_tpu_torch.ops import vqt as tvqt
+    from piano_a2s_tpu_torch.ops.vqt_cuda import vqt_magnitude_cuda
+    from piano_a2s_tpu_torch.serve import make_server
+
+    # (a) device
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"(a) python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+
+    # (b) build
+    build = _build.build("vqt_mag")
+    print(f"(b) built {build.path} in {build.seconds:.2f} s")
+    for line in build.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"(b) ptxas: {line.strip()}")
+
+    # (c) kernel vs plain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    max_err, ms, plain_ms = phase_kernel_vs_plain(
+        torch, tvqt, lambda: vqt_magnitude_cuda.launches)
+
+    # (d) full width, GPU vs CPU
+    cfg = ModelConfig()
+    state_dict = init_state_dict(cfg, seed=0)
+    gpu = Transcriber(state_dict, cfg, device="cuda")
+    cpu = Transcriber(state_dict, cfg, device="cpu")
+    phase_gpu_vs_cpu(torch, cfg, tvqt, gpu, cpu)
+    del cpu
+
+    clips = [noise((CLIP_SAMPLES,), 0.1, 100 + i) for i in range(N_CLIPS)]
+    gpu.transcribe_batch(clips)  # first call at this shape
+    stages = stage_seconds(torch, tvqt, gpu, clips)
+    print(f"(e) stage seconds at batch {N_CLIPS}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+
+    # (e) + (f): the main path, with the launch counts zeroed first.
+    vqt_magnitude_cuda.launches = 0
+    t0 = time.monotonic()
+    results = gpu.transcribe_batch(clips)
+    dt = time.monotonic() - t0
+    check(len(results) == N_CLIPS, "one result per clip")
+    for bars in results:
+        check(len(bars) == cfg.max_bars, "bars per clip")
+        for key, ts, lower, upper in bars:
+            check(-6 <= key <= 7 and "/" in ts, "key and time signature")
+            check(len(upper) <= cfg.max_length[0]
+                  and len(lower) <= cfg.max_length[1], "staff lengths")
+    after_batch = vqt_magnitude_cuda.launches
+    print(f"(e) transcribe_batch of {N_CLIPS} x 12 s clips: {dt:.3f} s, "
+          f"{N_CLIPS / dt:.2f} clips/s; vqt kernel launches "
+          f"{after_batch}")
+    check(after_batch > 0, "the batch went through the vqt kernel")
+    phase_server(make_server, gpu)
+    launches = vqt_magnitude_cuda.launches
+    print(f"(f) vqt kernel launches over (e) and (f): {launches}")
+    check(launches > after_batch, "the server went through the vqt kernel")
+    check("jax" not in sys.modules, "no jax imported")
+
+    print(card)
+    print(json.dumps({"kernels": [{
+        "name": "vqt_mag", "route": "cuda",
+        "source": "piano_a2s_tpu_torch/csrc/vqt_mag.cu",
+        "replaces": "piano_a2s_tpu/ops/vqt_pallas.py:31",
+        "launches": launches, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
