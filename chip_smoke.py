@@ -8,11 +8,14 @@ Phases, each of which raises on failure:
   (b) build: compile the VQT kernel from piano_a2s_tpu_torch/csrc/ with
       nvcc into build/piano_a2s_tpu_torch/; print ptxas registers, spills.
   (c) kernel vs plain: the VQT kernel and its plain PyTorch version (f32)
-      on the card, at 2 x 3 s and 16 x 12 s of noise, each held against the
-      plain version run in float64: the kernel's max error must be at most
-      twice the plain f32 version's, on the magnitude and after
-      log_compress (taken in float64), and |kernel - plain| < 1e-4 on the
-      magnitude. Then both times, in turns plain, kernel, kernel, plain.
+      on the card, at every shape the main paths give it: 2 x 3 s and
+      16 x 12 s of noise (serving), 4 x 12 s and 2 x 12 s of int16 noise
+      scaled by 1/32768 (a training batch and microbatch of (g2)), each
+      held against the plain version run in float64: the kernel's max
+      error must be at most twice the plain f32 version's, on the
+      magnitude and after log_compress (taken in float64), and
+      |kernel - plain| < 1e-4 on the magnitude. Then both times at
+      16 x 12 s, in turns plain, kernel, kernel, plain.
   (d) full-width model on one 12 s clip, GPU against the port's CPU path
       (random weights from seed 0): spectrogram within 1e-4, encoder
       output within 1e-3, decode log-probs within 1e-3 up to the first
@@ -21,10 +24,24 @@ Phases, each of which raises on failure:
   (e) batch serving: Transcriber.transcribe_batch on 16 clips of 12 s.
   (f) HTTP server: three WAV requests (one asking for Kern) through the
       port's make_server.
+  (g) training on the card. (g1) at a small width in float64, dropout
+      patched out and tf_ratio 1.0: one train_step on the card against the
+      port's CPU path; the loss components, the gradient norm, every
+      updated parameter and every BN running statistic within 1e-9.
+      (g2) at full width (random weights from seed 0): 4 x 12 s int16
+      noise clips with random well-formed targets, the log-VQT frontend
+      (the VQT kernel) inside the step, tf_ratio 0.7, guided attention on
+      (weight 1, sigma 0.15), a CUDA generator; 3 train_steps, then one
+      train_step_accum with accum_steps=2. Every loss finite, the
+      parameters and BN statistics changed, one kernel launch per
+      (micro)batch; prints seconds per step and peak device memory.
 
-The kernels' launch counts are zeroed before (e) and read after (f): the
-main path must have launched every kernel. The line before the last holds
-the kernels' JSON record; the last line is the result object.
+Each main path has its own launch counts, zeroed just before it and read
+just after it: serving over (e) and (f), training over (g2). Each path must
+have launched every kernel it runs. The line before the last holds the
+kernels' JSON record (``launches`` is the sum over the paths,
+``launches_by_path`` each path's count); the last line is the result
+object.
 """
 
 import io
@@ -45,6 +62,10 @@ TOL_MAG = 1e-4  # |kernel - plain| on the magnitude
 F64_RATIO = 2.0
 TOL_SPEC, TOL_ENC, TOL_LOGP, TOL_MARGIN = 1e-4, 1e-3, 1e-3, 1e-3
 N_CLIPS, CLIP_SAMPLES = 16, 192000
+TOL_TRAIN_F64 = 1e-9  # (g1) card against CPU, float64
+TRAIN_CLIPS, TRAIN_STEPS = 4, 3
+# H100 SXM data sheet: HBM 3.35 TB/s; dense TF32 tensor cores 494.7 TFLOP/s.
+HBM_BYTES_PER_S, TF32_FLOP_PER_S = 3.35e12, 494.7e12
 
 
 def check(ok, msg):
@@ -84,14 +105,26 @@ def errors_f64(tvqt, mag, ref64):
 
 
 def phase_kernel_vs_plain(torch, tvqt, launches_of):
+    from piano_a2s_tpu_torch.train.synthetic import pcm16_noise
+    from piano_a2s_tpu_torch.utils.audio import PCM16_SCALE
     cfg = tvqt.VQTConfig()
     dev = torch.device("cuda")
     kernels = tvqt.filters(cfg, dev)
     kernels64 = tvqt.filters(cfg, dev, torch.float64)
+
+    def pcm(shape, seed):
+        return pcm16_noise(shape, seed).astype(np.float32) / PCM16_SCALE
+
+    # Serving shapes, then (g2)'s batch and microbatch; 16 x 12 s last, as
+    # it is timed below.
+    cases = (((2, 48000), noise((2, 48000), 0.2, 0)),
+             ((TRAIN_CLIPS, CLIP_SAMPLES), pcm((TRAIN_CLIPS, CLIP_SAMPLES), 5)),
+             ((TRAIN_CLIPS // 2, CLIP_SAMPLES),
+              pcm((TRAIN_CLIPS // 2, CLIP_SAMPLES), 6)),
+             ((N_CLIPS, CLIP_SAMPLES), noise((N_CLIPS, CLIP_SAMPLES), 0.1, 1)))
     worst = 0.0
-    for shape, amp, seed in (((2, 48000), 0.2, 0),
-                             ((N_CLIPS, CLIP_SAMPLES), 0.1, 1)):
-        y = torch.tensor(noise(shape, amp, seed), device=dev)
+    for shape, audio in cases:
+        y = torch.tensor(audio, device=dev)
         before = launches_of()
         got = tvqt.vqt_magnitude(y, kernels, cfg)
         ref = tvqt.vqt_magnitude_torch(y, kernels, cfg)
@@ -129,6 +162,20 @@ def phase_kernel_vs_plain(torch, tvqt, launches_of):
           f"the kernel's three TF32 products are {3 * gflop:.1f} GFLOP of "
           f"tensor-core work -> {3 * gflop / ms:.1f} TFLOP/s")
     return worst, err_f64, plain_err_f64, ms, plain_ms
+
+
+def vqt_bound(batch, samples, window=1120, bins=480, hop=160):
+    """(ms, what bounds it): the least time of the VQT magnitude at (batch,
+    samples) on the card. Bytes: audio read once, both filters read once,
+    the magnitude written once. Operations: the kernel's three TF32
+    products (hi*hi, hi*lo, lo*hi) of the 2 x frames x window x bins
+    multiply-adds of the cos and sin filters."""
+    frames = 1 + samples // hop
+    nbytes = 4 * (batch * samples + 2 * window * bins + batch * frames * bins)
+    flop = 3 * 2 * 2 * batch * frames * window * bins
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / TF32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                       else "bytes")
 
 
 def phase_gpu_vs_cpu(torch, cfg, tvqt, gpu, cpu):
@@ -273,11 +320,112 @@ def phase_server(make_server, gpu):
     check(not thread.is_alive(), "server thread stopped")
 
 
+def phase_train_f64(torch, tmodels, tstep, tlayers):
+    """(g1) One float64 train_step on the card against the CPU path."""
+    from piano_a2s_tpu_torch.train.synthetic import random_targets
+    cfg = tmodels.ModelConfig(
+        freq_bins=24, conv_feature_size=32, hidden_size=24, max_bars=2,
+        max_length=(10, 7), note_emb_size=8, staff_emb_size=8)
+    state_dict = tmodels.init_state_dict(cfg, seed=1, dtype=torch.float64)
+    batch = dict(random_targets(cfg, 2, seed=3), spectrogram=np.random
+                 .RandomState(4).randn(2, 1, 30, cfg.freq_bins))
+    dropout = tlayers.dropout
+    tlayers.dropout = lambda x, rate, train, generator=None: x
+    results = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            model = tmodels.ScoreTranscription(cfg).double()
+            model.load_state_dict(state_dict, strict=True)
+            model.to(dev)
+            t_step, _ = tstep.make_train_steps(
+                tstep.make_optimizer(model.parameters()), device=dev)
+            out = t_step(model, batch, torch.Generator(dev).manual_seed(0),
+                         1.0)
+            results[dev] = (out, {k: v.cpu()
+                                  for k, v in model.state_dict().items()})
+    finally:
+        tlayers.dropout = dropout
+    (g_out, g_sd), (c_out, c_sd) = results["cuda"], results["cpu"]
+    errs = {k: abs(float(g_out.components[k]) - float(c_out.components[k]))
+            for k in c_out.components}
+    errs["grad_norm"] = abs(float(g_out.grad_norm) - float(c_out.grad_norm))
+    err_sd = max((g_sd[k].double() - c_sd[k].double()).abs().max().item()
+                 for k in c_sd)
+    moved = max((c_sd[k].double() - state_dict[k].double()).abs().max()
+                .item() for k in c_sd)
+    print(f"(g1) float64 train_step, card vs CPU: loss {float(c_out.loss):.6f}"
+          f"; max|diff| components and grad norm {max(errs.values()):.3e}, "
+          f"parameters and BN statistics {err_sd:.3e} (atol "
+          f"{TOL_TRAIN_F64}); the step moved them by up to {moved:.3e}")
+    check(all(np.isfinite(float(v)) for v in c_out.components.values()),
+          "(g1) finite loss")
+    check(max(errs.values()) < TOL_TRAIN_F64, "(g1) loss and norm agree")
+    check(err_sd < TOL_TRAIN_F64, "(g1) parameters and BN statistics agree")
+    check(moved > 1e-6, "(g1) the step changed the model")
+
+
+def phase_train_full(torch, tmodels, tstep, tvqt, launches_of):
+    """(g2) Full-width training from audio on the card."""
+    from piano_a2s_tpu_torch.train.synthetic import audio_batch
+    cfg = tmodels.ModelConfig()
+    model = tmodels.ScoreTranscription(cfg)
+    model.load_state_dict(tmodels.init_state_dict(cfg, seed=0), strict=True)
+    model.to("cuda")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    optimizer = tstep.make_optimizer(model.parameters())
+    opts = dict(from_audio=True, vqt_cfg=tvqt.VQTConfig(),
+                max_frame_num=1201, ga_weight=1.0, ga_sigma=0.15,
+                ga_dur_frac=tstep.duration_fraction_table(cfg.vocab_size),
+                device="cuda")
+    t_step, _ = tstep.make_train_steps(optimizer, **opts)
+    t_accum, _ = tstep.make_train_steps(optimizer, accum_steps=2, **opts)
+    gen = torch.Generator("cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses = [], []
+    for i in range(TRAIN_STEPS + 1):
+        batch = audio_batch(cfg, TRAIN_CLIPS, CLIP_SAMPLES, seed=200 + i,
+                            targets_seed=300 + i)
+        accum = i == TRAIN_STEPS
+        launched = launches_of()
+        t0 = time.monotonic()
+        out = (t_accum if accum else t_step)(model, batch, gen, 0.7)
+        torch.cuda.synchronize()
+        seconds.append(time.monotonic() - t0)
+        comps = {k: float(v) for k, v in out.components.items()}
+        losses.append(float(out.loss))
+        print(f"(g2) {'train_step_accum (2 x 2 clips)' if accum else 'train_step'}"
+              f" {i}: {seconds[-1]:.3f} s, loss {losses[-1]:.4f} "
+              + ", ".join(f"{k} {v:.4f}" for k, v in comps.items())
+              + f", grad norm {float(out.grad_norm):.3f}")
+        check(all(np.isfinite(v) for v in comps.values())
+              and np.isfinite(losses[-1]), "(g2) finite losses")
+        check("ga_loss" in comps, "(g2) guided attention on")
+        check(launches_of() == launched + (2 if accum else 1),
+              "(g2) one vqt kernel launch per (micro)batch")
+    peak = torch.cuda.max_memory_allocated()
+    after = model.state_dict()
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    n_params = sum(1 for _ in model.named_parameters())
+    bn = [k for k in before if "running_" in k]
+    print(f"(g2) {TRAIN_STEPS} train_steps and 1 train_step_accum at "
+          f"{TRAIN_CLIPS} x 12 s, full width: seconds per step "
+          f"{[round(s, 3) for s in seconds]}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; {len(changed)} of {len(before)} state "
+          f"tensors changed")
+    check(all(k in changed for k in bn), "(g2) BN running statistics moved")
+    check(sum(1 for k, _ in model.named_parameters() if k in changed)
+          == n_params, "(g2) every parameter moved")
+    return seconds, peak
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    import piano_a2s_tpu_torch.models as tmodels
+    import piano_a2s_tpu_torch.ops.layers as tlayers
+    import piano_a2s_tpu_torch.train.step as tstep
     from piano_a2s_tpu_torch.infer import Transcriber
     from piano_a2s_tpu_torch.models import ModelConfig, init_state_dict
     from piano_a2s_tpu_torch.ops import _build
@@ -321,7 +469,7 @@ def main():
     print(f"(e) stage seconds at batch {N_CLIPS}: "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
 
-    # (e) + (f): the main path, with the launch counts zeroed first.
+    # The serving path, (e) + (f), with the launch counts zeroed first.
     vqt_magnitude_cuda.launches = 0
     t0 = time.monotonic()
     results = gpu.transcribe_batch(clips)
@@ -339,11 +487,27 @@ def main():
           f"{after_batch}")
     check(after_batch > 0, "the batch went through the vqt kernel")
     phase_server(make_server, gpu)
-    launches = vqt_magnitude_cuda.launches
-    print(f"(f) vqt kernel launches over (e) and (f): {launches}")
-    check(launches > after_batch, "the server went through the vqt kernel")
-    check("jax" not in sys.modules, "no jax imported")
+    after_server = vqt_magnitude_cuda.launches
+    print(f"(f) vqt kernel launches over (e) and (f): {after_server}")
+    check(after_server > after_batch, "the server went through the vqt "
+          "kernel")
+    launches = {"serve": after_server}
+    del gpu
 
+    # (g) training; (g2) is the training path, with the counts zeroed first.
+    phase_train_f64(torch, tmodels, tstep, tlayers)
+    vqt_magnitude_cuda.launches = 0
+    phase_train_full(torch, tmodels, tstep, tvqt,
+                     lambda: vqt_magnitude_cuda.launches)
+    launches["train"] = vqt_magnitude_cuda.launches
+    print(f"(g2) vqt kernel launches over (g2): {launches['train']}")
+    check(launches["train"] == TRAIN_STEPS + 2,
+          "the training path went through the vqt kernel")
+    check("jax" not in sys.modules, "no jax imported")
+    check(not any(m == "piano_a2s_tpu" or m.startswith("piano_a2s_tpu.")
+                  for m in sys.modules), "nothing of the JAX package imported")
+
+    bound_ms, bound_by = vqt_bound(N_CLIPS, CLIP_SAMPLES)
     print(card)
     print(json.dumps({"kernels": [{
         "name": "vqt_mag", "route": "cuda",
@@ -351,8 +515,10 @@ def main():
         "replaces": "piano_a2s_tpu/ops/vqt_pallas.py:31",
         "design": "split-TF32 (3xTF32) wgmma m64n160k8 fed by TMA, 128 x "
                   "160 tile, 3 stages, 32-tap chunk sums; pad/split pre-pass",
-        "launches": launches, "max_abs_err": max_err, "err_f64": err_f64,
-        "plain_err_f64": plain_err_f64, "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": max_err, "err_f64": err_f64,
+        "plain_err_f64": plain_err_f64, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

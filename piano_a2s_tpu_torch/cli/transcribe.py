@@ -36,8 +36,9 @@ def main(argv=None):
 
     import numpy as np
 
-    from piano_a2s_tpu.utils.audio import read_wav, read_wav_pcm16, resample
     from piano_a2s_tpu_torch.infer import load_transcriber, result_to_files
+    from piano_a2s_tpu_torch.utils.audio import (read_wav, read_wav_pcm16,
+                                                 resample)
 
     if args.config:
         from piano_a2s_tpu_torch.config import load_configs

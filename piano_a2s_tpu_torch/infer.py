@@ -16,14 +16,13 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from piano_a2s_tpu.data.datasets import load_time_signatures
-from piano_a2s_tpu.train.metrics import unpad
-from piano_a2s_tpu.utils.audio import (PCM16_SCALE, stack_audio_batch,
-                                       trim_pad_audio)
-
+from .data.datasets import load_time_signatures
 from .models.convert import init_state_dict, load_torch_checkpoint
 from .models.score_transcription import ModelConfig, ScoreTranscription
 from .ops.vqt import VQTConfig, filters, get_vqt
+from .symbolic.export import export_target, tokens_to_kern
+from .train.metrics import unpad
+from .utils.audio import PCM16_SCALE, stack_audio_batch, trim_pad_audio
 from .utils.device import resolve_device, use_full_float32
 
 
@@ -211,7 +210,6 @@ def result_to_files(target: List[list], out_prefix: str,
                     write_kern: bool = True, write_xml: bool = True,
                     write_mid: bool = True) -> Dict[str, str]:
     """Write {prefix}.krn/.xml/.mid from a target structure."""
-    from piano_a2s_tpu.symbolic.export import export_target, tokens_to_kern
     paths = {}
     if write_kern:
         kern_upper = tokens_to_kern([m[3] for m in target])

@@ -1,6 +1,7 @@
-"""ScoreTranscription model, inference half (PyTorch).
+"""ScoreTranscription model (PyTorch): greedy inference and the
+teacher-forced training forward.
 
-Port of piano_a2s_tpu/models/score_transcription.py for ``train=False``:
+Port of piano_a2s_tpu/models/score_transcription.py:
 
     spectrogram (B, 1, T=1201, F=480)
       -> ConvStack: 4x [3x3 conv + BN + ReLU] -> flatten (C, F) -> Linear+BN
@@ -9,21 +10,26 @@ Port of piano_a2s_tpu/models/score_transcription.py for ``train=False``:
          hidden (B, 512)
       -> HierarchicalDecoder: per bar, a GRU step with additive attention
          gives the bar summary; two note decoders (upper and lower staff)
-         decode greedily; MLP heads give time and key signature.
+         decode greedily or, given ground truth, teacher-forced; MLP heads
+         give time and key signature.
 
 Parameter names are those of the torch reference state dict (the keys
 ``piano_a2s_tpu.models.convert.to_torch_state_dict`` emits), so a converted
-JAX checkpoint or an upstream checkpoint loads strictly.
+JAX checkpoint or an upstream checkpoint loads strictly. The BatchNorm
+state is the modules' running buffers, which a training forward writes in
+place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention as A
 from ..ops import gru as G
@@ -95,6 +101,30 @@ class ConvStack(nn.Module):
         w, b = L.fold_bn(self.out.weight, self.out_bn, self.out.bias,
                          dtype=y.dtype)
         return F.relu(L.linear(y, w, b))
+
+    def forward_train(self, x: torch.Tensor,
+                      sample_weight: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """Train: x (B, C_in, T, F) -> (B, T, conv_feature_size).
+
+        Conv, BatchNorm on the batch statistics (weighted by
+        ``sample_weight``; the running buffers are written) and ReLU per
+        layer, nothing folded; the flatten, the linear and ``out_bn``;
+        then dropout 0.2.
+        """
+        y = x
+        for i in range(1, 5):
+            y = L.conv2d_same(y, getattr(self, f"conv{i}").weight)
+            y = F.relu(L.batch_norm_train(y, getattr(self, f"bn{i}"),
+                                          axes=(0, 2, 3),
+                                          weight=sample_weight))
+        bsz, c, t, f = y.shape
+        y = y.permute(0, 2, 1, 3).reshape(bsz, t, c * f)
+        y = L.linear(y, self.out.weight, self.out.bias)
+        y = F.relu(L.batch_norm_train(y, self.out_bn, axes=(0, 1),
+                                      weight=sample_weight))
+        return L.dropout(y, 0.2, True, generator)
 
 
 class Encoder(nn.Module):
@@ -247,6 +277,248 @@ def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# Teacher-forced note decoder (training)
+# ---------------------------------------------------------------------------
+
+def _note_lengths(signal: torch.Tensor, max_steps: int) -> torch.Tensor:
+    """Per-item lengths of the reference's early-exit loop, from a full
+    EOS signal (B, T) bool: the loop stops at T_stop = max_i(first EOS of
+    item i) + 1, and an item's length is its last EOS step before T_stop,
+    plus one, or ``max_steps`` if it has none. 1 for an EOS at step 0."""
+    T = signal.shape[1]
+    steps = torch.arange(T, device=signal.device)
+    first = torch.where(signal.any(dim=1), signal.int().argmax(dim=1), T)
+    t_stop = torch.clamp(first.max() + 1, max=T)
+    valid = signal & (steps[None, :] < t_stop)
+    last = T - 1 - valid.flip(1).int().argmax(dim=1)
+    return torch.where(valid.any(dim=1), last + 1, max_steps)
+
+
+def ga_within_bar(gt: torch.Tensor, dur_frac: torch.Tensor,
+                  pad: int) -> torch.Tensor:
+    """Within-bar time fraction per token, one duration token per note.
+
+    gt: (..., T) ids; dur_frac: (vocab,) float32 whole-note fraction per
+    duration token id (0 elsewhere). Each duration token sits at its
+    note's midpoint (cumulative duration minus half its own); pitch and
+    separator tokens carry the last duration token's midpoint forward;
+    leading ones clamp to the bar start; all over the bar's total.
+    Streams that join chord notes each with their own duration token
+    double-count here: use ``ga_within_bar_events`` for those.
+    """
+    valid = (gt != pad).float()
+    dur = dur_frac[gt] * valid
+    cum = torch.cumsum(dur, dim=-1) - dur / 2.0
+    mid = torch.where(dur > 0, cum, -1.0)
+    mid = torch.cummax(mid, dim=-1).values.clamp(min=0.0)
+    total = dur.sum(dim=-1, keepdim=True).clamp(min=1e-6)
+    return (mid / total).clamp(0.0, 1.0)
+
+
+def ga_within_bar_events(gt: torch.Tensor, dur_frac: torch.Tensor,
+                         pad: int, sep: int) -> torch.Tensor:
+    """Chord-aware within-bar fraction: time advances once per EVENT (the
+    tokens between separators ``sep``) by the event's largest duration,
+    and every token of event k sits at event k's midpoint. Vectorised over
+    a (..., T, T) same-event mask; trailing pad merges into the last event
+    with zero duration."""
+    valid = (gt != pad).float()
+    dur = dur_frac[gt] * valid
+    is_sep = gt == sep
+    new_event = torch.cat([torch.ones_like(is_sep[..., :1]),
+                           is_sep[..., :-1]], dim=-1)
+    seg = torch.cumsum(new_event.int(), dim=-1)                # >= 1
+    same = seg[..., :, None] == seg[..., None, :]              # (..., T, T)
+    event_dur = torch.where(same, dur[..., None, :], 0.0).amax(dim=-1)
+    seg_size = same.sum(dim=-1).clamp(min=1).float()
+    per_pos = event_dur / seg_size
+    earlier = seg[..., None, :] < seg[..., :, None]
+    start = torch.where(earlier, per_pos[..., None, :], 0.0).sum(dim=-1)
+    total = per_pos.sum(dim=-1, keepdim=True).clamp(min=1e-6)
+    return ((start + event_dur / 2.0) / total).clamp(0.0, 1.0)
+
+
+def ga_within_bar_auto(gt: torch.Tensor, dur_frac: torch.Tensor, pad: int,
+                       sep: int) -> torch.Tensor:
+    """Per row: the event map where the row holds a separator, else the
+    per-duration-token map."""
+    has_sep = (gt == sep).any(dim=-1, keepdim=True)
+    return torch.where(has_sep, ga_within_bar_events(gt, dur_frac, pad, sep),
+                       ga_within_bar(gt, dur_frac, pad))
+
+
+def ga_within_bar_map(gt: torch.Tensor, dur_frac: torch.Tensor, pad: int,
+                      sep: int, mode: str = "auto") -> torch.Tensor:
+    """The within-bar map by ``mode``: 'auto' (per-row dispatch),
+    'events' (real-pipeline and chordal targets) or 'tokens' (chord-free
+    streams)."""
+    if mode == "events":
+        return ga_within_bar_events(gt, dur_frac, pad, sep)
+    if mode == "tokens":
+        return ga_within_bar(gt, dur_frac, pad)
+    if mode != "auto":
+        raise ValueError(f"ga_map={mode!r}: expected auto|events|tokens")
+    return ga_within_bar_auto(gt, dur_frac, pad, sep)
+
+
+def _stack_staves(upper: NoteDecoder, lower: NoteDecoder) -> tuple:
+    """Both staves' weights stacked on a leading axis of 2, right-multiply
+    layouts: (emb, w_q, v, w_ih, b_ih, w_hh, b_hh, w_out, b_out).
+    Differentiable: the stack is part of the graph."""
+    def both(fn):
+        return torch.stack([fn(upper), fn(lower)])
+
+    return (
+        both(lambda d: d.embedding.weight),                       # (2, V, E)
+        both(lambda d: d.attn.w_query).transpose(1, 2),           # (2, 2H, H)
+        both(lambda d: d.attn.v.weight[0]),                       # (2, H)
+        both(lambda d: d.gru.weight_ih_l0).transpose(1, 2),
+        both(lambda d: d.gru.bias_ih_l0),
+        both(lambda d: d.gru.weight_hh_l0).transpose(1, 2),
+        both(lambda d: d.gru.bias_hh_l0),
+        both(lambda d: d.out.weight).transpose(1, 2),             # (2, 4H, V)
+        both(lambda d: d.out.bias))
+
+
+def _embed2(emb2: torch.Tensor, ids2: torch.Tensor) -> torch.Tensor:
+    """Per-staff embedding lookup: ids (2, B) -> (2, B, E)."""
+    return emb2[torch.arange(2, device=ids2.device)[:, None], ids2]
+
+
+def _teacher_step(emit_full: bool, enc: torch.Tensor,
+                  enc_proj2: torch.Tensor, h2: torch.Tensor,
+                  tok2: torch.Tensor, drop2: Optional[torch.Tensor],
+                  gt_t: torch.Tensor, guide_t: Optional[torch.Tensor],
+                  coin_t: torch.Tensor, *weights: torch.Tensor):
+    """One teacher-forced step of both staves: token dropout, attention,
+    GRU, head, log-softmax in at least float32, then the next token (the
+    ground truth where the staff's coin says so, else the prediction).
+
+    Deterministic in its inputs (the dropout scale ``drop2``, the coins and
+    the guide are made by the caller), so a checkpointed call recomputes
+    it exactly. Every tensor it reads is an argument, the stacked staff
+    weights last (``_stack_staves``), so the reentrant checkpoint passes
+    gradients to all of them. Returns (h2, next token embeddings, emitted
+    (2, B[, V]), prediction (2, B), guided-attention penalty (2, B) float32
+    or None).
+    """
+    emb, w_q, v, w_ih, b_ih, w_hh, b_hh, w_out, b_out = weights
+    tok = tok2 if drop2 is None else tok2 * drop2
+    q2 = torch.bmm(h2, w_q)                                      # (2, B, H)
+    energy = torch.tanh(enc_proj2 + q2[:, :, None, :])           # (2,B,T,H)
+    scores = torch.einsum("sbth,sh->sbt", energy, v)
+    w2 = torch.softmax(scores.to(L.float32_or_wider(scores.dtype)), dim=-1)
+    ctx2 = torch.einsum("sbt,bth->sbh", w2.to(enc.dtype), enc)
+    x_proj = torch.bmm(torch.cat([tok, ctx2], dim=-1), w_ih) + b_ih[:, None]
+    h_proj = torch.bmm(h2, w_hh) + b_hh[:, None]
+    h2 = G.gru_gates(x_proj, h_proj, h2)
+    out = torch.bmm(torch.cat([h2, ctx2], dim=-1), w_out) + b_out[:, None]
+    logp2 = torch.log_softmax(out.to(L.float32_or_wider(out.dtype)), dim=-1)
+    pred2 = logp2.argmax(dim=-1)
+    nxt = torch.where(coin_t[:, None], gt_t, pred2)
+    emitted = (logp2 if emit_full
+               else logp2.gather(-1, gt_t[..., None])[..., 0])
+    # The attention mass outside the guide, in float32 as the JAX package
+    # has it (the guide is zero at pad steps).
+    pen = None if guide_t is None else (w2.float() * guide_t).sum(dim=-1)
+    return h2, _embed2(emb, nxt), emitted, pred2, pen
+
+
+def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
+                           enc: torch.Tensor, enc_proj2: torch.Tensor,
+                           h0: torch.Tensor, gt_up: torch.Tensor,
+                           gt_low: torch.Tensor, lengths2: torch.Tensor,
+                           tf_ratio: float, train: bool,
+                           generator: Optional[torch.Generator] = None,
+                           emit_full: bool = True, ga_frac=None,
+                           ga_sigma: float = 0.15,
+                           ga_dur_frac: Optional[torch.Tensor] = None,
+                           ga_content: Optional[torch.Tensor] = None,
+                           ga_map: str = "auto"):
+    """Teacher-forced decode of one bar, both staves in one loop of
+    max(T_up, T_low) steps; the lower staff's ground truth is padded with
+    <pad> and each staff's outputs are cut back to its own cap.
+    ``weights`` is ``_stack_staves`` of the two note decoders.
+
+    One teacher-forcing coin per staff per step, shared across the batch.
+    emit_full=False emits only the log-prob of the ground-truth token
+    ((B, T) per staff instead of (B, T, V)). ``lengths2`` (2, B) are the
+    staves' lengths (``_note_lengths`` of the ground truth).
+
+    With gradients on, each step runs under a reentrant activation
+    checkpoint: the forward keeps no activations (it runs without autograd)
+    and the backward recomputes the step, (2, B, T_enc, H) attention
+    energies included. The steps' dropout scales and coins are drawn here,
+    before the checkpointed function, so the recompute sees the same ones.
+
+    ga_frac=(bar_start, bar_span) turns on the guided-attention penalty:
+    step t is expected to attend at bar_start + bar_span * within(t) of
+    the encoder frames (within from ``ga_dur_frac`` by ``ga_map``, else
+    the token index over the length), compressed by ``ga_content`` (B,),
+    and the penalty is the attention mass outside a Gaussian of width
+    ``ga_sigma`` around it, summed over non-pad steps. The guide takes no
+    gradient and is computed for all steps at once. Returns ((up_logp,
+    up_tok), (low_logp, low_tok), ga_num (2, B) float32 or None).
+    """
+    B, dev = enc.shape[0], enc.device
+    t_up, t_low = cfg.max_length
+    T = max(t_up, t_low)
+    gt2 = torch.stack([F.pad(gt_up, (0, T - t_up), value=cfg.pad),
+                       F.pad(gt_low, (0, T - t_low), value=cfg.pad)]).long()
+    tok2 = _embed2(weights[0], torch.full((2, B), cfg.sos, dtype=torch.long,
+                                          device=dev))
+    drops = None
+    if train:
+        drops = L.dropout(torch.ones((T,) + tok2.shape, dtype=tok2.dtype,
+                                     device=dev), 0.1, train, generator)
+    coins = torch.rand((T, 2), generator=generator, device=dev) < tf_ratio
+    guides = None
+    if ga_frac is not None:
+        n_enc = enc.shape[1]
+        f_frac = torch.arange(n_enc, dtype=torch.float32, device=dev) / n_enc
+        if ga_dur_frac is not None:
+            within = ga_within_bar_map(gt2, ga_dur_frac, cfg.pad,
+                                       cfg.newline, ga_map)
+        else:
+            steps = torch.arange(T, dtype=torch.float32, device=dev)
+            within = ((steps[None, None, :] + 0.5)
+                      / lengths2.float().clamp(min=1.0)[..., None]
+                      ).clamp(max=1.0)
+        bar_start, bar_span = ga_frac
+        phi = bar_start + bar_span * within                      # (2, B, T)
+        if ga_content is not None:
+            phi = phi * ga_content[None, :, None]
+        phi = phi.permute(2, 0, 1)                               # (T, 2, B)
+        guides = 1.0 - torch.exp(-((f_frac - phi[..., None]) ** 2)
+                                 / (2.0 * ga_sigma ** 2))  # (T, 2, B, T_enc)
+        guides = guides * (gt2 != cfg.pad).permute(2, 0, 1)[..., None]
+
+    h2 = torch.stack([h0, h0])
+    ga = torch.zeros((2, B), dtype=torch.float32, device=dev)
+    emitted, preds = [], []
+    for t in range(T):
+        args = (emit_full, enc, enc_proj2, h2, tok2,
+                None if drops is None else drops[t], gt2[:, :, t],
+                None if guides is None else guides[t], coins[t]) + weights
+        if torch.is_grad_enabled():
+            outs = checkpoint(_teacher_step, *args, use_reentrant=True,
+                              preserve_rng_state=False)
+        else:
+            outs = _teacher_step(*args)
+        h2, tok2, e, pred2, pen = outs
+        if pen is not None:
+            ga = ga + pen
+        emitted.append(e)
+        preds.append(pred2)
+    logps = torch.stack(emitted)                      # (T, 2, B[, V])
+    toks = torch.stack(preds)                         # (T, 2, B)
+    up = (logps[:t_up, 0].transpose(0, 1), toks[:t_up, 0].transpose(0, 1))
+    low = (logps[:t_low, 1].transpose(0, 1),
+           toks[:t_low, 1].transpose(0, 1))
+    return up, low, (ga if guides is not None else None)
+
+
+# ---------------------------------------------------------------------------
 # Hierarchical (bar-level) decoder
 # ---------------------------------------------------------------------------
 
@@ -283,6 +555,19 @@ class HierarchicalDecoder(nn.Module):
                                    L.embed(self.note_emb.weight, tokens),
                                    lengths)
 
+    def sos_token(self, B: int, dev: torch.device) -> torch.Tensor:
+        """The first bar's conditioning token: the staff summary of
+        [<sos>, <eos>] for both staves, plus the SOS time- and
+        key-signature embeddings."""
+        cfg = self.cfg
+        sos_pair = torch.tensor([[[cfg.sos, cfg.eos]]], device=dev) \
+            .repeat(1, B, 1)
+        staff0 = self.staff_summaries(
+            sos_pair, torch.full((1, B), 2, dtype=torch.long))[0]
+        time0 = self.time_sig_emb.weight[cfg.num_time_sig].expand(B, -1)
+        key0 = self.key_emb.weight[cfg.num_keys].expand(B, -1)
+        return torch.cat([staff0, staff0, time0, key0], dim=-1)
+
     def forward(self, enc: torch.Tensor, hidden: torch.Tensor):
         """Greedy decode of max_bars bars (no ground truth).
 
@@ -299,16 +584,7 @@ class HierarchicalDecoder(nn.Module):
         dual = dual_decode_params(self.upper_decoder, self.lower_decoder,
                                   cfg)
 
-        # SOS bootstrap token: the staff summary of [<sos>, <eos>] for both
-        # staves, plus the SOS time- and key-signature embeddings.
-        sos_pair = torch.tensor([[[cfg.sos, cfg.eos]]], device=dev) \
-            .repeat(1, B, 1)
-        staff0 = self.staff_summaries(
-            sos_pair, torch.full((1, B), 2, dtype=torch.long))[0]
-        time0 = self.time_sig_emb.weight[cfg.num_time_sig].expand(B, -1)
-        key0 = self.key_emb.weight[cfg.num_keys].expand(B, -1)
-        token = torch.cat([staff0, staff0, time0, key0], dim=-1)
-
+        token = self.sos_token(B, dev)
         t_s = max(cfg.max_length)
         outs = []
         for _ in range(cfg.max_bars):
@@ -344,6 +620,111 @@ class HierarchicalDecoder(nn.Module):
                "upper_lengths": up_len, "lower_lengths": low_len}
         return ts_logp, key_logp, up_logp, low_logp, aux
 
+    def forward_teacher_forced(self, enc: torch.Tensor,
+                               hidden: torch.Tensor, ground_truth,
+                               tf_ratio: float, train: bool,
+                               generator: Optional[torch.Generator] = None,
+                               emit_full: bool = True,
+                               ga_sigma: float = 0.0, ga_dur_frac=None,
+                               ga_content: Optional[torch.Tensor] = None,
+                               ga_map: str = "auto"):
+        """Decode max_bars bars against ``ground_truth`` = (time_sig
+        (B, bars), key (B, bars), upper (B, bars, Tu), upper_len (B, bars),
+        lower (B, bars, Tl), lower_len (B, bars)).
+
+        Per bar: dropout 0.1 on the conditioning token (train only), the
+        bar GRU step, the teacher-forced note decode of both staves, the
+        heads, then the next conditioning token from the four staff
+        summaries (predicted and ground-truth, upper and lower) in one
+        packed call, chosen by one teacher-forcing coin per bar. Returns
+        the greedy forward's outputs; with emit_full=False the staff
+        outputs are the log-probs at the ground-truth tokens (B, bars, T).
+        ga_sigma > 0 in training turns on the guided-attention penalty
+        (see note_decoder_dual_scan): aux["ga_num"] (B, bars, 2).
+
+        The staves' lengths come from the ground truth's EOS (coupled
+        across the batch) and reach the host once per call, for the
+        packed summaries; every length must be at least 1.
+        """
+        cfg = self.cfg
+        B, dev = enc.shape[0], enc.device
+        ts_gt, key_gt, up_gt, up_len_gt, low_gt, low_len_gt = [
+            torch.as_tensor(g, device=dev).long() for g in ground_truth]
+        bars = cfg.max_bars
+        t_up, t_low = cfg.max_length
+        enc_proj_bar = A.precompute_enc_proj(self.attn, enc)
+        enc_proj2 = torch.stack([
+            A.precompute_enc_proj(self.upper_decoder.attn, enc),
+            A.precompute_enc_proj(self.lower_decoder.attn, enc)])
+        dual = _stack_staves(self.upper_decoder, self.lower_decoder)
+        use_ga = ga_sigma > 0 and train
+        if use_ga and ga_dur_frac is not None:
+            ga_dur_frac = torch.as_tensor(ga_dur_frac, dtype=torch.float32,
+                                          device=dev)
+
+        up_len = torch.stack([_note_lengths(up_gt[:, j] == cfg.eos, t_up)
+                              for j in range(bars)])          # (bars, B)
+        low_len = torch.stack([_note_lengths(low_gt[:, j] == cfg.eos, t_low)
+                               for j in range(bars)])
+        lens_host = torch.stack([up_len, low_len, up_len_gt.T,
+                                 low_len_gt.T], dim=1).cpu()  # (bars, 4, B)
+        if bool((lens_host < 1).any()):
+            raise ValueError("every staff length must be at least 1 (the "
+                             "packed staff summaries take no empty "
+                             "sequence)")
+
+        t_s = max(t_up, t_low)
+
+        def pad_t(a):
+            return F.pad(a, (0, t_s - a.shape[1]), value=cfg.pad)
+
+        token = self.sos_token(B, dev)
+        outs = []
+        for j in range(bars):
+            token = L.dropout(token, 0.1, train, generator)
+            context, _ = A.attention_step(self.attn, enc_proj_bar, enc,
+                                          hidden)
+            bar_summary = G.gru_step(self.gru,
+                                     torch.cat([token, context], dim=-1),
+                                     hidden)
+            hidden = bar_summary
+            (up_logp, up_tok), (low_logp, low_tok), ga_num = \
+                note_decoder_dual_scan(
+                    dual, cfg, enc, enc_proj2, bar_summary, up_gt[:, j],
+                    low_gt[:, j], torch.stack([up_len[j], low_len[j]]),
+                    tf_ratio, train, generator, emit_full=emit_full,
+                    ga_frac=(j / bars, 1.0 / bars) if use_ga else None,
+                    ga_sigma=ga_sigma, ga_dur_frac=ga_dur_frac,
+                    ga_content=ga_content, ga_map=ga_map)
+            head_in = torch.cat([bar_summary, context], dim=-1)
+            ts_logp = torch.log_softmax(self.time_sig_out(head_in), dim=-1)
+            key_logp = torch.log_softmax(self.key_out(head_in), dim=-1)
+
+            sums = self.staff_summaries(
+                torch.stack([pad_t(up_tok), pad_t(low_tok),
+                             pad_t(up_gt[:, j]), pad_t(low_gt[:, j])]),
+                lens_host[j])
+            token_pred = torch.cat([
+                sums[0], sums[1],
+                self.time_sig_emb(ts_logp.argmax(dim=-1)),
+                self.key_emb(key_logp.argmax(dim=-1))], dim=-1)
+            token_gt = torch.cat([
+                sums[2], sums[3], self.time_sig_emb(ts_gt[:, j]),
+                self.key_emb(key_gt[:, j])], dim=-1)
+            coin = torch.rand((), generator=generator, device=dev) < tf_ratio
+            token = torch.where(coin, token_gt, token_pred)
+            outs.append((ts_logp, key_logp, up_logp, low_logp, up_tok,
+                         low_tok) + ((ga_num,) if use_ga else ()))
+
+        stacked = [torch.stack(x, dim=1) for x in zip(*outs)]
+        ts_logp, key_logp, up_logp, low_logp, up_tok, low_tok = stacked[:6]
+        aux = {"upper_tokens": up_tok, "lower_tokens": low_tok,
+               "upper_lengths": up_len.T, "lower_lengths": low_len.T}
+        if use_ga:
+            # (2, bars, B) -> (B, bars, 2): per clip, bar and staff.
+            aux["ga_num"] = stacked[6].permute(2, 1, 0)
+        return ts_logp, key_logp, up_logp, low_logp, aux
+
 
 # ---------------------------------------------------------------------------
 # Full model
@@ -362,13 +743,52 @@ class ScoreTranscription(nn.Module):
         feats = self.convstack(spectrogram)
         return self.encoder(feats.to(L.float32_or_wider(feats.dtype)))
 
-    @torch.no_grad()
-    def forward(self, spectrogram: torch.Tensor, train: bool = False):
-        """Inference forward: spectrogram (B, 1, T, F) -> (time_sig_logp,
-        key_logp, upper_logp, lower_logp, aux), greedy and deterministic.
+    def forward(self, spectrogram: torch.Tensor, train: bool = False,
+                ground_truth=None, tf_ratio: float = 0.0,
+                emit_full: bool = True,
+                sample_weight: Optional[torch.Tensor] = None,
+                ga_sigma: float = 0.0, ga_dur_frac=None,
+                ga_content: Optional[torch.Tensor] = None,
+                ga_map: str = "auto", conv_dtype=None,
+                generator: Optional[torch.Generator] = None):
+        """spectrogram (B, 1, T, F) -> (time_sig_logp, key_logp,
+        upper_logp, lower_logp, aux).
+
+        Without ground truth: greedy inference (deterministic, no
+        gradient; ``train`` must be False). With ground truth: the
+        teacher-forced forward (HierarchicalDecoder.forward_teacher_forced),
+        with gradients. train=True runs the ConvStack on batch statistics
+        (weighted by ``sample_weight``; the BatchNorm running buffers are
+        written in place), dropout drawn from ``generator`` and the
+        guided-attention penalty; train=False folds the running statistics
+        and drops nothing. ``conv_dtype`` (bf16 conv training) is not
+        ported yet and raises.
         """
-        if train:
+        if conv_dtype is not None:
             raise NotImplementedError(
-                "the training forward is not ported yet")
+                f"conv_dtype={conv_dtype}: reduced-precision conv training "
+                "is not ported yet")
+        if ground_truth is None:
+            if train:
+                raise ValueError("the training forward needs ground_truth")
+            return self._greedy(spectrogram)
+        with record_function("forward/convstack"):
+            if train:
+                feats = self.convstack.forward_train(
+                    spectrogram, sample_weight, generator)
+            else:
+                feats = self.convstack(spectrogram)
+        with record_function("forward/encoder"):
+            enc, hidden = self.encoder(
+                feats.to(L.float32_or_wider(feats.dtype)))
+        with record_function("forward/decoder"):
+            return self.decoder.forward_teacher_forced(
+                enc, hidden, ground_truth, tf_ratio, train, generator,
+                emit_full=emit_full, ga_sigma=ga_sigma,
+                ga_dur_frac=ga_dur_frac, ga_content=ga_content,
+                ga_map=ga_map)
+
+    @torch.no_grad()
+    def _greedy(self, spectrogram: torch.Tensor):
         enc, hidden = self.encode(spectrogram)
         return self.decoder(enc, hidden)

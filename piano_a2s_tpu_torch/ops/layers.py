@@ -1,20 +1,25 @@
-"""Conv / BatchNorm-fold / Linear / Embedding helpers for inference.
+"""Conv / BatchNorm / Linear / Embedding / Dropout helpers.
 
-The eval subset of piano_a2s_tpu/ops/layers.py. Convolutions are NCHW with
-OIHW weights, PyTorch's own layout, so a torch state dict loads as it is.
-Training-mode BatchNorm (with its weighted batch statistics) is not ported
-yet.
+Port of piano_a2s_tpu/ops/layers.py. Convolutions are NCHW with OIHW
+weights, PyTorch's own layout, so a torch state dict loads as it is.
+Eval-mode BatchNorm is folded into the preceding conv or linear
+(``fold_bn``); training-mode BatchNorm is a function on tensors
+(``batch_norm_train``) because ``nn.BatchNorm`` cannot weight the rows of
+its batch statistics. The ``nn.BatchNorm`` modules keep the parameters
+and the running buffers.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # running = (1 - m) * running + m * batch
 
 
 def float32_or_wider(dtype: torch.dtype) -> torch.dtype:
@@ -57,3 +62,57 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(ids, table)
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
+                     axes: Sequence[int],
+                     weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Training-mode BatchNorm of x over ``axes`` (axis 0 among them).
+
+    Normalises by the biased batch variance and writes the running
+    statistics of ``bn`` in place with the unbiased variance at momentum
+    0.1. ``weight`` ((B,), e.g. 0/1) weights each batch row's share of the
+    batch statistics, so padding duplicates of a last batch do not bias
+    them; an all-zero weight (a fully padded microbatch) falls back to
+    unweighted statistics rather than 0/0. ``num_batches_tracked`` is not
+    used: the momentum is fixed.
+    """
+    if weight is not None:
+        w = torch.where(weight.sum() > 0, weight,
+                        torch.ones_like(weight)).to(x.dtype)
+        wx = w.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+        per_row = math.prod(x.shape[a] for a in axes if a != 0)
+        # n counts the rows that contribute: sum(w) after the fallback.
+        n = w.sum() * per_row
+        mean = (x * wx).sum(dim=tuple(axes)) / n
+        shape_m = [1 if i in axes else x.shape[i] for i in range(x.dim())]
+        var = (wx * (x - mean.reshape(shape_m)) ** 2).sum(
+            dim=tuple(axes)) / n
+        unbiased = var * (n / torch.clamp(n - 1, min=1))
+    else:
+        mean = x.mean(dim=tuple(axes))
+        var = x.var(dim=tuple(axes), correction=0)
+        n = x.numel() // mean.numel()
+        unbiased = var * (n / max(n - 1, 1))
+    with torch.no_grad():
+        bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean
+                              + BN_MOMENTUM * mean)
+        bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var
+                             + BN_MOMENTUM * unbiased)
+    shape = [x.shape[i] if i not in axes else 1 for i in range(x.dim())]
+    inv = torch.rsqrt(var + BN_EPS)
+    return ((x - mean.reshape(shape)) * (inv * bn.weight).reshape(shape)
+            + bn.bias.reshape(shape))
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout: each element is kept with probability 1 - rate
+    and scaled by 1 / (1 - rate), the mask drawn from ``generator`` (on
+    x's device; None draws from the default generator)."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))

@@ -126,6 +126,10 @@ def test_load_torch_checkpoint_strips_module_list_prefix(tmp_path):
 
 
 def test_training_forward_not_ported():
+    """A training forward without ground truth, a greedy decode in
+    training mode, is not a thing the port has: the training forward is
+    the teacher-forced one (tests/test_torch_train.py), and train=True
+    without ground truth raises."""
     model = tst.ScoreTranscription(TCFG)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="ground_truth"):
         model(torch.zeros(1, 1, 8, CFG.freq_bins), train=True)

@@ -1,9 +1,12 @@
-"""The port never imports jax, and it never falls back to the CPU.
+"""The port never imports jax nor the JAX package, and it never falls back
+to the CPU.
 
-The import check runs in a subprocess: this test process has jax loaded
-already (tests/conftest.py)."""
+The import checks run in a subprocess: this test process has jax and the
+JAX package loaded already (tests/conftest.py)."""
 
+import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -31,20 +34,65 @@ def _port_modules():
     return sorted(mods)
 
 
-def test_port_imports_no_jax():
-    mods = _port_modules()
-    assert f"{PACKAGE}.ops.vqt_cuda" in mods and f"{PACKAGE}.serve" in mods
+def _import_in_fresh_process(mods):
+    """Import ``mods`` in a new interpreter; fail if jax or any module of
+    the JAX package (piano_a2s_tpu, piano_a2s_tpu.*) got loaded."""
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+            "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+            "             or m == 'piano_a2s_tpu'\n"
+            "             or m.startswith('piano_a2s_tpu.'))\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.startswith("ok")
+
+
+def test_port_imports_no_jax():
+    mods = _port_modules()
+    assert f"{PACKAGE}.ops.vqt_cuda" in mods and f"{PACKAGE}.serve" in mods
+    assert f"{PACKAGE}.train.step" in mods
+    _import_in_fresh_process(mods)
+
+
+def _chip_smoke_imports():
+    """Every module chip_smoke.py imports, at top level or in a function."""
+    tree = ast.parse(open(os.path.join(REPO_ROOT, "chip_smoke.py")).read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    return sorted(mods)
+
+
+def test_chip_smoke_imports_no_jax():
+    mods = _chip_smoke_imports()
+    assert f"{PACKAGE}.train.step" in mods
+    _import_in_fresh_process(mods + ["chip_smoke"])
+
+
+_JAX_PACKAGE_IMPORT = re.compile(r"(from|import) piano_a2s_tpu(\.| |$)",
+                                 re.MULTILINE)
+
+
+def test_no_source_imports_the_jax_package():
+    files = [os.path.join(REPO_ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(REPO_ROOT, PACKAGE)):
+        files += [os.path.join(dirpath, f) for f in names
+                  if f.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        src = open(path).read()
+        assert not _JAX_PACKAGE_IMPORT.search(src), path
+    assert _JAX_PACKAGE_IMPORT.search("from piano_a2s_tpu.serve import x")
+    assert _JAX_PACKAGE_IMPORT.search("import piano_a2s_tpu")
+    assert not _JAX_PACKAGE_IMPORT.search("from piano_a2s_tpu_torch import x")
 
 
 def test_no_kernel_library_or_compile_in_port():
