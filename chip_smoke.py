@@ -35,10 +35,27 @@ Phases, each of which raises on failure:
       train_step_accum with accum_steps=2. Every loss finite, the
       parameters and BN statistics changed, one kernel launch per
       (micro)batch; prints seconds per step and peak device memory.
+  (h) the training harness through its commands, at full width from
+      audio: a corpus of int16 noise clips of 10-12 s with 5-bar targets
+      (10-120 upper and 5-60 lower tokens a staff) written to a temporary
+      folder (train/0: 8 clips, valid/0 and test/0: 4 each, and an ASAP
+      copy with 4 train and 4 test clips); cli.pretrain (one epoch, batch
+      4, --profile) then cli.finetune (one epoch, warm-started from it),
+      then load_transcriber on finetune's save folder, which must hold the
+      checkpoint's weights bit for bit, and 2 clips transcribed; then
+      finetune's checkpoint restored into a Trainer on the CPU and one
+      saved there restored into a Trainer on the card, model and Adadelta
+      state bit for bit. Checks the losses are finite, one committed
+      checkpoint per save folder, a result JSON per valid and test clip,
+      the bucketed caps below (398, 189) and finetune's fresh Adadelta;
+      prints the caps, seconds per train step, eval-stage and checkpoint
+      seconds, checkpoint bytes, peak device memory and the train logs.
 
 Each main path has its own launch counts, zeroed just before it and read
-just after it: serving over (e) and (f), training over (g2). Each path must
-have launched every kernel it runs. The line before the last holds the
+just after it: serving over (e) and (f), training over (g2), the harness
+over (h), which must launch the kernel exactly once per train batch, eval
+batch and transcribe call. Each path must have launched every kernel it
+runs. The line before the last holds the
 kernels' JSON record (``launches`` is the sum over the paths,
 ``launches_by_path`` each path's count); the last line is the result
 object.
@@ -46,6 +63,7 @@ object.
 
 import io
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -64,6 +82,13 @@ TOL_SPEC, TOL_ENC, TOL_LOGP, TOL_MARGIN = 1e-4, 1e-3, 1e-3, 1e-3
 N_CLIPS, CLIP_SAMPLES = 16, 192000
 TOL_TRAIN_F64 = 1e-9  # (g1) card against CPU, float64
 TRAIN_CLIPS, TRAIN_STEPS = 4, 3
+# (h): clips per split (the ASAP copy for finetune: its valid split is its
+# test split), batch, clips transcribed; 10-12 s of audio a clip, staves of
+# 10-120 upper and 5-60 lower tokens a bar, the length scale of real bars.
+H_CLIPS = {"train": 8, "valid": 4, "test": 4}
+H_ASAP = {"train": 4, "test": 4}
+H_BATCH, H_TRANSCRIBE = 4, 2
+H_SAMPLES, H_UPPER, H_LOWER = (160000, 192000), (10, 120), (5, 60)
 # H100 SXM data sheet: HBM 3.35 TB/s; dense TF32 tensor cores 494.7 TFLOP/s.
 HBM_BYTES_PER_S, TF32_FLOP_PER_S = 3.35e12, 494.7e12
 
@@ -418,7 +443,232 @@ def phase_train_full(torch, tmodels, tstep, tvqt, launches_of):
     return seconds, peak
 
 
+class Spy:
+    """Wraps methods on the training path so that each call records its
+    phase, its seconds and what ``probe(obj, args, kwargs, result)`` reads;
+    the methods themselves run unchanged. ``undo`` restores them."""
+
+    def __init__(self):
+        self.calls = {}
+        self.phase = None
+        self._undo = []
+
+    def wrap(self, cls, name, probe=None):
+        orig = getattr(cls, name)
+        calls = self.calls.setdefault(f"{cls.__name__}.{name}", [])
+
+        def wrapper(obj, *args, **kwargs):
+            t0 = time.monotonic()
+            out = orig(obj, *args, **kwargs)
+            calls.append((self.phase, time.monotonic() - t0,
+                          probe(obj, args, kwargs, out) if probe else None))
+            return out
+
+        setattr(cls, name, wrapper)
+        self._undo.append(lambda: setattr(cls, name, orig))
+
+    def of(self, name, phase=None):
+        return [c for c in self.calls[name] if phase in (None, c[0])]
+
+    def undo(self):
+        for fn in reversed(self._undo):
+            fn()
+
+
+def same_state(a, b):
+    """Bitwise equality of two (nested) state dicts, tensors compared on
+    the CPU whatever their devices."""
+    if hasattr(a, "cpu"):
+        return (hasattr(b, "cpu") and a.dtype == b.dtype
+                and a.shape == b.shape and bool((a.cpu() == b.cpu()).all()))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(same_state(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(map(same_state, a, b)))
+    return a == b
+
+
+def _ckpt_dirs(save):
+    return [os.path.join(save, d) for d in sorted(os.listdir(save))
+            if d.startswith("CKPT+")]
+
+
+def phase_trainer(torch):
+    """(h) The training harness on the card: cli.pretrain then
+    cli.finetune (warm-started from it) on a tiny on-disk corpus of int16
+    noise at full width from audio, then load_transcriber on finetune's
+    save folder. Returns the VQT kernel launches the path must make."""
+    import tempfile
+
+    from piano_a2s_tpu_torch.cli import finetune, pretrain
+    from piano_a2s_tpu_torch.config import load_experiment
+    from piano_a2s_tpu_torch.infer import load_transcriber
+    from piano_a2s_tpu_torch.train.checkpoint import Checkpointer
+    from piano_a2s_tpu_torch.train.harness import Trainer
+    from piano_a2s_tpu_torch.train.logger import FileTrainLogger
+    from piano_a2s_tpu_torch.train.synthetic import write_clips
+
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs")
+    spy = Spy()
+    spy.wrap(Trainer, "_bucketed", lambda t, a, k, out: (
+        out["upper"].shape[-1], out["lower"].shape[-1]))
+    spy.wrap(Trainer, "_eval_stage")
+    spy.wrap(Trainer, "restore", lambda t, a, k, out: (
+        len(t.optimizer.state), [g["lr"] for g in t.optimizer.param_groups],
+        t.exp.lr))
+    spy.wrap(Checkpointer, "save")
+    spy.wrap(Checkpointer, "load")
+    spy.wrap(FileTrainLogger, "log_stats", lambda lg, a, k, out: k)
+    torch.cuda.reset_peak_memory_stats()
+    seconds = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            synth = os.path.join(tmp, "feature.score")
+            asap = os.path.join(tmp, "feature.asap")
+            kw = dict(samples=H_SAMPLES, upper=H_UPPER, lower=H_LOWER)
+            for i, (split, n) in enumerate(H_CLIPS.items()):
+                write_clips(os.path.join(synth, split, "0"), n, seed=40 + i,
+                            **kw)
+            for i, (split, n) in enumerate(H_ASAP.items()):
+                write_clips(os.path.join(asap, split), n, seed=50 + i, **kw)
+            common = [f"workspace={tmp}", "midi_syn=score",
+                      "number_of_epochs=1", "input_features=audio",
+                      f"batch_size={H_BATCH}"]
+            runs = (("pretrain", pretrain, [f"feature_folder={synth}",
+                                            "train_versions=1",
+                                            "profile_trace_steps=0",
+                                            "--profile"]),
+                    ("finetune", finetune, [f"feature_folder={asap}"]))
+            for name, cli, extra in runs:
+                spy.phase = name
+                t0 = time.monotonic()
+                rc = cli.main([os.path.join(configs, f"{name}.yaml"),
+                               *common, *extra, "--device", "cuda"])
+                seconds[name] = time.monotonic() - t0
+                check(rc == 0, f"(h) {name} exit code")
+            out = {name: os.path.join(tmp, "1234", f"{name}.score")
+                   for name, _, _ in runs}
+
+            spy.phase = "transcribe"
+            save = os.path.join(out["finetune"], "save")
+            t0 = time.monotonic()
+            tr = load_transcriber(save, device="cuda")
+            best = Checkpointer(save).best_path("WER")
+            saved = torch.load(os.path.join(best, "model.pt"),
+                               map_location="cpu", weights_only=True)
+            loaded = tr.model.state_dict()
+            check(sorted(loaded) == sorted(saved) and all(
+                torch.equal(loaded[k].cpu(), saved[k]) for k in saved),
+                "(h) load_transcriber's weights bit-equal to the checkpoint")
+            clips = [np.load(os.path.join(asap, "test", "audio",
+                                          f"clip{i}.npy"))
+                     for i in range(H_TRANSCRIBE)]
+            bars = tr.transcribe_batch(clips)
+            seconds["transcribe"] = time.monotonic() - t0
+            check(len(bars) == H_TRANSCRIBE
+                  and all(len(b) == 5 for b in bars), "(h) transcriptions")
+            peak = torch.cuda.max_memory_allocated()
+
+            # Checkpoints move between devices: finetune's, saved from the
+            # card, restores into a Trainer on the CPU, and one saved there
+            # restores into a Trainer on the card, bit for bit.
+            spy.phase = "devices"
+            t0 = time.monotonic()
+            exp = load_experiment(os.path.join(out["finetune"],
+                                               "hyperparams.yaml"))
+            on_cpu = Trainer(exp, device="cpu")
+            on_cpu.restore(best)
+            saved_opt = torch.load(os.path.join(best, "optimizer.pt"),
+                                   map_location="cpu", weights_only=True)
+            check(same_state(on_cpu.model.state_dict(), saved)
+                  and same_state(on_cpu.optimizer.state_dict(), saved_opt)
+                  and saved_opt["state"],
+                  "(h) the card's checkpoint restored on the CPU")
+            moved = Checkpointer(os.path.join(tmp, "moved")).save(
+                on_cpu._trees(), {"WER": 0.0}, on_cpu._host_state(1))
+            on_card = Trainer(exp, device="cuda")
+            on_card.restore(moved)
+            check(same_state(on_card.model.state_dict(), saved)
+                  and same_state(on_card.optimizer.state_dict(), saved_opt)
+                  and next(on_card.model.parameters()).is_cuda
+                  and all(v.is_cuda for s in on_card.optimizer.state.values()
+                          for k, v in s.items() if k != "step"),
+                  "(h) the CPU's checkpoint restored on the card")
+            seconds["devices"] = time.monotonic() - t0
+
+            with open(os.path.join(out["pretrain"], "profile",
+                                   "step_times.json")) as f:
+                steps = json.load(f)["train_step"]
+            for name in out:
+                with open(os.path.join(out[name], "train_log.txt")) as f:
+                    for line in f:
+                        print(f"(h) {name} train_log: {line.rstrip()}")
+                ckpts = _ckpt_dirs(os.path.join(out[name], "save"))
+                check(len(ckpts) == 1 and os.path.exists(
+                    os.path.join(ckpts[0], "meta.json")),
+                    f"(h) one committed checkpoint in {name}'s save folder")
+                sizes = {f: os.path.getsize(os.path.join(ckpts[0], f))
+                         for f in sorted(os.listdir(ckpts[0]))}
+                print(f"(h) {name} checkpoint {os.path.basename(ckpts[0])}:"
+                      f" {sum(sizes.values())} bytes on disk {sizes}")
+                n_test = H_ASAP["test"] if name == "finetune" else \
+                    H_CLIPS["test"]
+                n_valid = n_test if name == "finetune" else H_CLIPS["valid"]
+                for split, n in (("valid", n_valid), ("test", n_test)):
+                    files = os.listdir(os.path.join(out[name], "results",
+                                                    split))
+                    check(len(files) == n, f"(h) {name} {split} results")
+    finally:
+        spy.undo()
+
+    caps = {name: [c[2] for c in spy.of("Trainer._bucketed", name)]
+            for name in ("pretrain", "finetune")}
+    print(f"(h) decode caps (upper, lower) of each train batch: {caps} "
+          f"(full caps (398, 189))")
+    check(len(caps["pretrain"]) == -(-H_CLIPS["train"] // H_BATCH)
+          and len(caps["finetune"]) == -(-H_ASAP["train"] // H_BATCH),
+          "(h) train batches")
+    check(all(u < 398 and lo < 189 for u, lo in
+              caps["pretrain"] + caps["finetune"]), "(h) bucketed caps")
+    print(f"(h) seconds per train step (pretrain, step_times.json): mean "
+          f"{steps['mean_s']:.3f}, min {steps['min_s']:.3f}, max "
+          f"{steps['max_s']:.3f} over {steps['count']}")
+    for name in ("Trainer._eval_stage", "Checkpointer.save",
+                 "Checkpointer.load"):
+        print(f"(h) {name} seconds: " + ", ".join(
+            f"{ph} {s:.3f}" for ph, s, _ in spy.of(name)))
+    print(f"(h) wall seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in seconds.items())
+        + f"; peak device memory {peak / 2**30:.2f} GiB")
+    for phase, _, stages in spy.of("FileTrainLogger.log_stats"):
+        for stage, stats in stages.items():
+            if stage != "stats_meta":
+                check(np.isfinite(stats["loss"]),
+                      f"(h) {phase} {stage} loss finite")
+    restores = spy.of("Trainer.restore", "finetune")
+    print(f"(h) restores (optimizer state entries, lr, exp.lr): "
+          f"{[c[2] for c in spy.of('Trainer.restore')]}")
+    n_state, lrs, lr = restores[0][2]
+    check(n_state == 0 and lrs == [lr],
+          "(h) finetune's warm start ran a fresh Adadelta at exp.lr")
+    check(spy.of("Trainer.restore", "pretrain")[0][2][0] > 0,
+          "(h) pretrain's evaluate restored the optimizer state")
+
+    def batches(n):
+        return -(-n // H_BATCH)
+
+    # One launch per train and eval batch on the path, and one per
+    # transcribe call.
+    return (batches(H_CLIPS["train"]) + batches(H_CLIPS["valid"])
+            + batches(H_CLIPS["test"]) + batches(H_ASAP["train"])
+            + 2 * batches(H_ASAP["test"]) + 1)
+
+
 def main():
+    t_main = time.monotonic()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -503,6 +753,19 @@ def main():
     print(f"(g2) vqt kernel launches over (g2): {launches['train']}")
     check(launches["train"] == TRAIN_STEPS + 2,
           "the training path went through the vqt kernel")
+    t_h = time.monotonic()
+    seconds_a_to_g = t_h - t_main
+
+    # (h) the training harness, with its own launch count.
+    vqt_magnitude_cuda.launches = 0
+    expected = phase_trainer(torch)
+    launches["trainer"] = vqt_magnitude_cuda.launches
+    print(f"(h) vqt kernel launches over (h): {launches['trainer']} "
+          f"(expected {expected}); phases (a)-(g) took "
+          f"{seconds_a_to_g:.1f} s, (h) {time.monotonic() - t_h:.1f} s")
+    check(launches["trainer"] == expected,
+          "the harness path launched the vqt kernel once per train batch, "
+          "eval batch and transcribe call")
     check("jax" not in sys.modules, "no jax imported")
     check(not any(m == "piano_a2s_tpu" or m.startswith("piano_a2s_tpu.")
                   for m in sys.modules), "nothing of the JAX package imported")

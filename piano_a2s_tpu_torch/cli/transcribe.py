@@ -3,7 +3,7 @@ PyTorch port.
 
 Usage:
     python -m piano_a2s_tpu_torch.cli.transcribe input.wav [more.wav ...] \
-        [--checkpoint TORCH_CKPT] [--out-dir DIR] [--device cuda|cpu]
+        [--checkpoint CKPT] [--out-dir DIR] [--device cuda|cpu]
 
 Each input becomes {out-dir}/{stem}.krn/.xml/.mid. Clips longer than 12 s
 are truncated (the model's capability envelope).
@@ -21,7 +21,10 @@ def main(argv=None):
                         help="WAV files, or .npy mono float/int16 arrays at "
                              "the model sample rate")
     parser.add_argument("--checkpoint", default=None,
-                        help="torch checkpoint file (.ckpt/.pt/.pth; "
+                        help="torch checkpoint file (.ckpt/.pt/.pth), "
+                             "a save folder of the port's training "
+                             "commands (its best checkpoint by WER) or "
+                             "one CKPT+... directory of it ("
                              "default: random weights — smoke mode)")
     parser.add_argument("--out-dir", default=".")
     parser.add_argument("--batch-size", type=int, default=16,

@@ -15,6 +15,7 @@ own ``ModelConfig`` and ``VQTConfig``.
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -157,11 +158,32 @@ class ExperimentConfig:
         out.extras = extras
         return out
 
+    def snapshot(self, folder: str) -> str:
+        """Write the resolved config (fields and extras, overrides applied,
+        references interpolated) to <folder>/hyperparams.yaml, so that every
+        run folder records what it ran with."""
+        d = dataclasses.asdict(self)
+        d.update(d.pop("extras"))
+        d["max_length"] = list(self.max_length)
+        os.makedirs(folder, exist_ok=True)
+        path = os.path.join(folder, "hyperparams.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(d, f, sort_keys=False)
+        return path
+
     @property
     def max_samples(self) -> int:
         """Samples per clip of raw audio: what VQT turns into exactly
         max_frame_num frames."""
         return (self.max_frame_num - 1) * self.hop_length
+
+    def dataset_kwargs(self) -> Dict[str, Any]:
+        """The dataset constructors' keyword arguments that the training
+        commands share: the shape caps and the configured feature mode."""
+        return dict(
+            max_frame_num=self.max_frame_num, max_length=self.max_length,
+            input_features=self.extras.get("input_features", "spectrogram"),
+            max_samples=self.max_samples)
 
     def model_config(self):
         from .models.score_transcription import ModelConfig

@@ -9,6 +9,7 @@ model run on the device, and uint8 tokens and int16 lengths come back.
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence
@@ -21,6 +22,7 @@ from .models.convert import init_state_dict, load_torch_checkpoint
 from .models.score_transcription import ModelConfig, ScoreTranscription
 from .ops.vqt import VQTConfig, filters, get_vqt
 from .symbolic.export import export_target, tokens_to_kern
+from .train.checkpoint import Checkpointer, is_checkpoint
 from .train.metrics import unpad
 from .utils.audio import PCM16_SCALE, stack_audio_batch, trim_pad_audio
 from .utils.device import resolve_device, use_full_float32
@@ -190,20 +192,40 @@ def load_transcriber(checkpoint: Optional[str] = None,
                      vqt_cfg: VQTConfig = VQTConfig(),
                      seed: int = 0, max_frame_num: int = 1201,
                      device="cuda") -> Transcriber:
-    """A Transcriber from a torch checkpoint file (.ckpt/.pt/.pth) or, with
-    checkpoint=None, from random weights drawn from ``seed``."""
+    """A Transcriber from ``checkpoint``: a torch checkpoint file
+    (.ckpt/.pt/.pth), a save folder of the port's training commands (its
+    best checkpoint by WER), one ``CKPT+...`` directory of such a folder,
+    or, with checkpoint=None, random weights drawn from ``seed``."""
     if checkpoint is None:
         state_dict = init_state_dict(cfg, seed)
+    elif os.path.isdir(checkpoint):
+        state_dict = load_saved_model(checkpoint)
     elif checkpoint.endswith((".ckpt", ".pt", ".pth")):
         state_dict = load_torch_checkpoint(checkpoint)
     else:
         raise ValueError(
             f"{checkpoint!r}: the port loads torch checkpoint files "
-            "(.ckpt/.pt/.pth). Orbax save directories need jax to read and "
-            "are not supported yet; export one to a torch file with "
-            "scripts/export_reference_checkpoint.py")
+            "(.ckpt/.pt/.pth) and the save folders of its own training "
+            "commands")
     return Transcriber(state_dict, cfg, vqt_cfg, max_frame_num=max_frame_num,
                        device=device)
+
+
+def load_saved_model(path: str) -> Dict[str, torch.Tensor]:
+    """The model state dict of a port checkpoint directory (CKPT+...), or
+    of the best checkpoint by WER in a save folder, on the CPU."""
+    if not is_checkpoint(path):
+        path = Checkpointer(path).best_path("WER") or path
+    if not (is_checkpoint(path)
+            and os.path.exists(os.path.join(path, "model.pt"))):
+        raise ValueError(
+            f"{path!r}: no checkpoint of the port here (a save folder of "
+            "CKPT+*/ directories holding model.pt and meta.json, or one "
+            "such directory). Orbax save folders, written by the JAX "
+            "package, need jax to read; export one to a torch file with "
+            "scripts/export_reference_checkpoint.py")
+    trees, _, _ = Checkpointer(os.path.dirname(path)).load(path, ("model",))
+    return trees["model"]
 
 
 def result_to_files(target: List[list], out_prefix: str,

@@ -436,9 +436,11 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
                            ga_content: Optional[torch.Tensor] = None,
                            ga_map: str = "auto"):
     """Teacher-forced decode of one bar, both staves in one loop of
-    max(T_up, T_low) steps; the lower staff's ground truth is padded with
-    <pad> and each staff's outputs are cut back to its own cap.
-    ``weights`` is ``_stack_staves`` of the two note decoders.
+    max(T_up, T_low) steps, each staff's cap T_s the width of its ground
+    truth ``gt_up`` (B, T_up) and ``gt_low`` (B, T_low); the narrower
+    staff's ground truth is padded with <pad> and each staff's outputs are
+    cut back to its own cap. ``weights`` is ``_stack_staves`` of the two
+    note decoders.
 
     One teacher-forcing coin per staff per step, shared across the batch.
     emit_full=False emits only the log-prob of the ground-truth token
@@ -461,7 +463,7 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
     up_tok), (low_logp, low_tok), ga_num (2, B) float32 or None).
     """
     B, dev = enc.shape[0], enc.device
-    t_up, t_low = cfg.max_length
+    t_up, t_low = gt_up.shape[1], gt_low.shape[1]
     T = max(t_up, t_low)
     gt2 = torch.stack([F.pad(gt_up, (0, T - t_up), value=cfg.pad),
                        F.pad(gt_low, (0, T - t_low), value=cfg.pad)]).long()
@@ -645,13 +647,21 @@ class HierarchicalDecoder(nn.Module):
         The staves' lengths come from the ground truth's EOS (coupled
         across the batch) and reach the host once per call, for the
         packed summaries; every length must be at least 1.
+
+        Each staff decodes to its ground truth's width, at most
+        cfg.max_length: a batch whose targets end early may be cut to a
+        shorter width (length bucketing). The cut-off positions are all
+        <pad>, so the loss and its gradients are those of the full width.
         """
         cfg = self.cfg
         B, dev = enc.shape[0], enc.device
         ts_gt, key_gt, up_gt, up_len_gt, low_gt, low_len_gt = [
             torch.as_tensor(g, device=dev).long() for g in ground_truth]
         bars = cfg.max_bars
-        t_up, t_low = cfg.max_length
+        t_up, t_low = up_gt.shape[-1], low_gt.shape[-1]
+        if t_up > cfg.max_length[0] or t_low > cfg.max_length[1]:
+            raise ValueError(f"ground truth widths ({t_up}, {t_low}) exceed "
+                             f"max_length {tuple(cfg.max_length)}")
         enc_proj_bar = A.precompute_enc_proj(self.attn, enc)
         enc_proj2 = torch.stack([
             A.precompute_enc_proj(self.upper_decoder.attn, enc),

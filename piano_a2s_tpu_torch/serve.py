@@ -400,7 +400,10 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         description="HTTP transcription server (dynamic batching)")
     parser.add_argument("--checkpoint", default=None,
-                        help="torch checkpoint file (.ckpt/.pt/.pth; "
+                        help="torch checkpoint file (.ckpt/.pt/.pth), "
+                             "a save folder of the port's training "
+                             "commands (its best checkpoint by WER) or "
+                             "one CKPT+... directory of it ("
                              "default: random weights — smoke mode)")
     parser.add_argument("--config", default=None,
                         help="experiment YAML for model dims")

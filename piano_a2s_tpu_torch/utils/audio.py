@@ -2,7 +2,8 @@
 
 The part of piano_a2s_tpu/utils/audio.py that the port uses: WAV reading
 via the stdlib wave module (PCM 8/16/24/32), polyphase resampling via
-scipy, and the fixed-length batch contract of the Transcriber.
+scipy, int16 conversions, and the fixed-length batch contract of the
+Transcriber and the datasets.
 """
 
 from __future__ import annotations
@@ -17,6 +18,20 @@ from scipy import signal as _signal
 # int16 conversion (Transcriber, the training audio frontend) all divide by
 # this, so an int16 batch and its float32 twin give the same spectrogram.
 PCM16_SCALE = 32768.0
+
+
+def float32_to_int16(x: np.ndarray) -> np.ndarray:
+    """float in [-1, 1] -> int16 at the reference's x 32767 scale (the
+    reference's data-pipeline helper; not the inverse of PCM16_SCALE)."""
+    assert np.max(np.abs(x)) <= 1.0
+    return (x * 32767.0).astype(np.int16)
+
+
+def to_pcm16(data: np.ndarray) -> np.ndarray:
+    """float [-1, 1] -> int16 PCM with the scale the device conversion
+    undoes exactly (PCM16_SCALE): the training batches' int16 staging."""
+    return np.clip(np.round(np.asarray(data, np.float32) * PCM16_SCALE),
+                   -32768, 32767).astype(np.int16)
 
 
 def read_wav(path) -> Tuple[np.ndarray, int]:

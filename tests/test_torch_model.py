@@ -125,7 +125,7 @@ def test_load_torch_checkpoint_strips_module_list_prefix(tmp_path):
     assert list(load_torch_checkpoint(path)) == list(sd)
 
 
-def test_training_forward_not_ported():
+def test_training_forward_needs_ground_truth():
     """A training forward without ground truth, a greedy decode in
     training mode, is not a thing the port has: the training forward is
     the teacher-forced one (tests/test_torch_train.py), and train=True
