@@ -50,17 +50,31 @@ Phases, each of which raises on failure:
       the bucketed caps below (398, 189) and finetune's fresh Adadelta;
       prints the caps, seconds per train step, eval-stage and checkpoint
       seconds, checkpoint bytes, peak device memory and the train logs.
+  (i) the bfloat16 paths at full width. (i1) serving: a Transcriber with
+      decode_dtype=torch.bfloat16 on (d)'s clip against float32 on the
+      card, float32 log-probs within 0.05 up to the first token
+      divergence, which may only fall where float32's top-2 margin is
+      below 0.05; stage seconds; (e)'s 16 clips in turns f32, bf16, bf16,
+      f32 (clips/s of each); then one bf16 transcribe_batch, checked
+      well-formed, and one request through make_server. (i2) training:
+      (g2)'s setting (its first two batches, guided attention, tf 0.7)
+      with conv_dtype=torch.bfloat16, 2 train_steps: losses finite,
+      parameters and BN statistics moved and still float32, Adadelta state
+      float32, and peak device memory below (g2)'s float32 peak; prints
+      seconds per step and both peaks.
 
 Each main path has its own launch counts, zeroed just before it and read
 just after it: serving over (e) and (f), training over (g2), the harness
 over (h), which must launch the kernel exactly once per train batch, eval
-batch and transcribe call. Each path must have launched every kernel it
-runs. The line before the last holds the
+batch and transcribe call, bf16 serving over (i1)'s batch and request,
+bf16 training over (i2), once per step. Each path must have launched every
+kernel it runs. The line before the last holds the
 kernels' JSON record (``launches`` is the sum over the paths,
 ``launches_by_path`` each path's count); the last line is the result
 object.
 """
 
+import gc
 import io
 import json
 import os
@@ -82,6 +96,10 @@ TOL_SPEC, TOL_ENC, TOL_LOGP, TOL_MARGIN = 1e-4, 1e-3, 1e-3, 1e-3
 N_CLIPS, CLIP_SAMPLES = 16, 192000
 TOL_TRAIN_F64 = 1e-9  # (g1) card against CPU, float64
 TRAIN_CLIPS, TRAIN_STEPS = 4, 3
+# (i): the bf16 paths. Log-probs of the bf16 decode against float32 on the
+# card (tests/test_bf16_decode.py's bound), up to a divergence at a top-2
+# margin below TOL_MARGIN_BF16; train steps of (i2).
+TOL_LOGP_BF16, TOL_MARGIN_BF16, BF16_TRAIN_STEPS = 0.05, 0.05, 2
 # (h): clips per split (the ASAP copy for finetune: its valid split is its
 # test split), batch, clips transcribed; 10-12 s of audio a clip, staves of
 # 10-120 upper and 5-60 lower tokens a bar, the length scale of real bars.
@@ -203,22 +221,69 @@ def vqt_bound(batch, samples, window=1120, bins=480, hop=160):
                                        else "bytes")
 
 
+def decode_one(torch, tvqt, tr, audio):
+    """One clip through ``tr``'s frontend and model stage by stage, in its
+    decode dtype; every output on the CPU."""
+    dt = tr.decode_dtype
+    with torch.inference_mode():
+        x = torch.from_numpy(audio).to(tr.device)
+        spec = tvqt.get_vqt(x, tr.kernels, tr.vqt_cfg)
+        enc, hidden = tr.model.encode(
+            spec[:, None] if dt is None else spec[:, None].to(dt))
+        ts, key, up, low, aux = tr.model.decoder(enc, hidden, dt)
+    return {k: v.cpu() for k, v in (
+        ("spec", spec), ("enc", enc), ("ts", ts), ("key", key),
+        ("up", up), ("low", low), ("up_tok", aux["upper_tokens"]),
+        ("low_tok", aux["lower_tokens"]),
+        ("up_len", aux["upper_lengths"]),
+        ("low_len", aux["lower_lengths"]))}
+
+
+def compare_decodes(ref, got, cfg, tol_logp, tol_margin, label):
+    """Hold ``got``'s greedy decode of one clip against ``ref``'s: the
+    time and key signature log-probs and each staff's log-probs within
+    ``tol_logp`` up to the first token divergence, which may only fall
+    where ``ref``'s top-2 log-prob margin is below ``tol_margin``; the
+    bars after it are conditioned on other tokens and are not compared.
+    Returns (steps compared, max |difference|, first divergence)."""
+    steps, worst, diverged = 0, 0.0, None
+    for bar in range(cfg.max_bars):
+        if diverged is not None:
+            break
+        for key_name in ("ts", "key"):
+            e = (got[key_name][0, bar] - ref[key_name][0, bar]).abs().max()
+            worst = max(worst, e.item())
+        for staff in ("up", "low"):
+            gt, rt = got[f"{staff}_tok"][0, bar], ref[f"{staff}_tok"][0, bar]
+            ran = int((ref[staff][0, bar].abs().sum(-1) > 0).sum())
+            diff = (gt[:ran] != rt[:ran]).nonzero()
+            first = int(diff[0]) if len(diff) else None
+            stop = ran if first is None else first + 1
+            e = (got[staff][0, bar, :stop].float()
+                 - ref[staff][0, bar, :stop].float()).abs()
+            worst = max(worst, e.max().item())
+            steps += stop
+            if first is not None:
+                top2 = ref[staff][0, bar, first].topk(2).values
+                margin = (top2[0] - top2[1]).item()
+                print(f"{label} tokens diverge at bar {bar} staff {staff} "
+                      f"step {first}: top-2 margin {margin:.3e}")
+                check(margin < tol_margin, f"{label} divergence only at a "
+                      "near-tie")
+                diverged = (bar, staff, first)
+    print(f"{label} decode: {steps} steps compared, max|difference| log-prob "
+          f"{worst:.3e} (atol {tol_logp}); first divergence: {diverged}")
+    check(steps > 0, f"{label} decode steps compared")
+    check(worst < tol_logp, f"{label} decode log-probs agree")
+    return steps, worst, diverged
+
+
 def phase_gpu_vs_cpu(torch, cfg, tvqt, gpu, cpu):
     audio = noise((1, CLIP_SAMPLES), 0.1, 2)
     outs = {}
     for name, tr in (("gpu", gpu), ("cpu", cpu)):
         t0 = time.monotonic()
-        with torch.inference_mode():
-            x = torch.from_numpy(audio).to(tr.device)
-            spec = tvqt.get_vqt(x, tr.kernels, tr.vqt_cfg)
-            enc, hidden = tr.model.encode(spec[:, None])
-            ts, key, up, low, aux = tr.model.decoder(enc, hidden)
-        outs[name] = {k: v.cpu() for k, v in (
-            ("spec", spec), ("enc", enc), ("ts", ts), ("key", key),
-            ("up", up), ("low", low), ("up_tok", aux["upper_tokens"]),
-            ("low_tok", aux["lower_tokens"]),
-            ("up_len", aux["upper_lengths"]),
-            ("low_len", aux["lower_lengths"]))}
+        outs[name] = decode_one(torch, tvqt, tr, audio)
         print(f"(d) {name}: one clip through the full-width model in "
               f"{time.monotonic() - t0:.2f} s")
     g, c = outs["gpu"], outs["cpu"]
@@ -234,39 +299,14 @@ def phase_gpu_vs_cpu(torch, cfg, tvqt, gpu, cpu):
           f"encoder {err_enc:.3e} (atol {TOL_ENC})")
     check(err_spec < TOL_SPEC, "spectrogram agrees")
     check(err_enc < TOL_ENC, "encoder output agrees")
-
-    steps, worst, diverged = 0, 0.0, None
-    for bar in range(cfg.max_bars):
-        if diverged is not None:
-            break  # later bars are conditioned on different tokens
-        for key_name in ("ts", "key"):
-            e = (g[key_name][0, bar] - c[key_name][0, bar]).abs().max()
-            worst = max(worst, e.item())
-        for staff in ("up", "low"):
-            gt, ct = g[f"{staff}_tok"][0, bar], c[f"{staff}_tok"][0, bar]
-            ran = int((c[staff][0, bar].abs().sum(-1) > 0).sum())
-            diff = (gt[:ran] != ct[:ran]).nonzero()
-            first = int(diff[0]) if len(diff) else None
-            stop = ran if first is None else first + 1
-            e = (g[staff][0, bar, :stop] - c[staff][0, bar, :stop]).abs()
-            worst = max(worst, e.max().item())
-            steps += stop
-            if first is not None:
-                top2 = c[staff][0, bar, first].topk(2).values
-                margin = (top2[0] - top2[1]).item()
-                print(f"(d) tokens diverge at bar {bar} staff {staff} step "
-                      f"{first}: cpu top-2 margin {margin:.3e}")
-                check(margin < TOL_MARGIN, "divergence only at a near-tie")
-                diverged = (bar, staff, first)
-    print(f"(d) decode: {steps} steps compared, max|gpu-cpu| log-prob "
-          f"{worst:.3e} (atol {TOL_LOGP}); first divergence: {diverged}")
-    check(steps > 0, "decode steps compared")
-    check(worst < TOL_LOGP, "decode log-probs agree")
+    compare_decodes(c, g, cfg, TOL_LOGP, TOL_MARGIN, "(d)")
 
 
 def stage_seconds(torch, tvqt, tr, clips):
-    """Host-clock seconds of each stage of one batch, each ended by a
-    synchronize (the decode loop syncs every step anyway)."""
+    """Host-clock seconds of each stage of one batch in the transcriber's
+    decode dtype, each ended by a synchronize (the decode loop syncs every
+    step anyway)."""
+    dt = tr.decode_dtype
     out = {}
     with torch.inference_mode():
         t = time.monotonic()
@@ -276,13 +316,13 @@ def stage_seconds(torch, tvqt, tr, clips):
         spec = tvqt.get_vqt(x, tr.kernels, tr.vqt_cfg)[:, None]
         torch.cuda.synchronize()
         out["vqt"], t = time.monotonic() - t, time.monotonic()
-        feats = tr.model.convstack(spec)
+        feats = tr.model.convstack(spec if dt is None else spec.to(dt))
         torch.cuda.synchronize()
         out["convstack"], t = time.monotonic() - t, time.monotonic()
-        enc, hidden = tr.model.encoder(feats)
+        enc, hidden = tr.model.encoder(feats.to(torch.float32))
         torch.cuda.synchronize()
         out["encoder"], t = time.monotonic() - t, time.monotonic()
-        tr.model.decoder(enc, hidden)
+        tr.model.decoder(enc, hidden, dt)
         torch.cuda.synchronize()
         out["decoder"] = time.monotonic() - t
     return out
@@ -299,12 +339,14 @@ def wav_bytes(audio, sr):
     return buf.getvalue()
 
 
-def phase_server(make_server, gpu):
+def phase_server(make_server, gpu, label="(f)", n_requests=3):
+    """``n_requests`` WAV requests from as many client threads through
+    make_server on the transcriber ``gpu``; the third asks for Kern."""
     httpd = make_server(gpu, "127.0.0.1", 0, max_batch=4, max_wait_ms=50)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
-    replies = [None] * 3
+    replies = [None] * n_requests
 
     def client(i):
         query = "?format=kern" if i == 2 else ""
@@ -317,7 +359,7 @@ def phase_server(make_server, gpu):
     try:
         t0 = time.monotonic()
         clients = [threading.Thread(target=client, args=(i,))
-                   for i in range(3)]
+                   for i in range(n_requests)]
         for t in clients:
             t.start()
         for t in clients:
@@ -334,15 +376,85 @@ def phase_server(make_server, gpu):
     for i, reply in enumerate(replies):
         check(reply is not None, f"request {i} answered")
         status, body = reply
-        print(f"(f) request {i}{' (kern)' if i == 2 else ''}: HTTP {status}, "
-              f"{len(body)} bytes")
+        print(f"{label} request {i}{' (kern)' if i == 2 else ''}: HTTP "
+              f"{status}, {len(body)} bytes")
         check(status == 200 and len(body) > 0, f"request {i} status/body")
-    check(replies[2][1].decode().startswith("!! upper staff"), "kern body")
+    if n_requests > 2:
+        check(replies[2][1].decode().startswith("!! upper staff"),
+              "kern body")
     check(len(json.loads(replies[0][1])["bars"]) == 5, "json bars")
-    print(f"(f) 3 requests answered in {dt:.2f} s; device "
+    print(f"{label} {n_requests} request(s) answered in {dt:.2f} s; device "
           f"{health['device']!r}; batches {stats['batches']}, clips "
           f"{stats['clips']}")
     check(not thread.is_alive(), "server thread stopped")
+
+
+def check_results(results, cfg, label):
+    """The target structures of a batch of N_CLIPS clips are well-formed."""
+    check(len(results) == N_CLIPS, f"{label} one result per clip")
+    for bars in results:
+        check(len(bars) == cfg.max_bars, f"{label} bars per clip")
+        for key, ts, lower, upper in bars:
+            check(-6 <= key <= 7 and "/" in ts,
+                  f"{label} key and time signature")
+            check(len(upper) <= cfg.max_length[0]
+                  and len(lower) <= cfg.max_length[1],
+                  f"{label} staff lengths")
+
+
+def phase_serve_bf16(torch, tvqt, Transcriber, make_server, state_dict, cfg,
+                     clips, f32_seconds, kernel):
+    """(i1) bf16 serving at full width: (d)'s clip decoded in bf16 against
+    float32 on the card; stage seconds; transcribe_batch of (e)'s clips in
+    turns f32, bf16, bf16, f32; then the path, with the kernel's launch
+    count zeroed first: one bf16 transcribe_batch and one request through
+    make_server. Returns the path's launches."""
+    f32 = Transcriber(state_dict, cfg, device="cuda")
+    bf16 = Transcriber(state_dict, cfg, device="cuda",
+                       decode_dtype=torch.bfloat16)
+    audio = noise((1, CLIP_SAMPLES), 0.1, 2)
+    ref = decode_one(torch, tvqt, f32, audio)
+    got = decode_one(torch, tvqt, bf16, audio)
+    for k, v in got.items():
+        if v.is_floating_point():
+            check(torch.isfinite(v).all().item(), f"(i1) {k} finite")
+    check(all(got[k].dtype == torch.float32 for k in ("ts", "key", "up",
+                                                      "low")),
+          "(i1) bf16 decode log-probs are float32")
+    compare_decodes(ref, got, cfg, TOL_LOGP_BF16, TOL_MARGIN_BF16, "(i1)")
+
+    bf16.transcribe_batch(clips)  # first call at this shape
+    stages = stage_seconds(torch, tvqt, bf16, clips)
+    print(f"(i1) bf16 stage seconds at batch {N_CLIPS}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+    turns = {"f32": [], "bf16": []}
+    for name, tr in (("f32", f32), ("bf16", bf16), ("bf16", bf16),
+                     ("f32", f32)):
+        t0 = time.monotonic()
+        tr.transcribe_batch(clips)
+        turns[name].append(time.monotonic() - t0)
+    rate = {k: N_CLIPS / float(np.median(v)) for k, v in turns.items()}
+    print(f"(i1) transcribe_batch of {N_CLIPS} x 12 s clips in turns f32, "
+          f"bf16, bf16, f32: f32 {[round(t, 3) for t in turns['f32']]} s, "
+          f"bf16 {[round(t, 3) for t in turns['bf16']]} s; clips/s f32 "
+          f"{rate['f32']:.2f}, bf16 {rate['bf16']:.2f} (bf16 / f32 "
+          f"{rate['bf16'] / rate['f32']:.3f}); (e)'s f32 "
+          f"{N_CLIPS / f32_seconds:.2f}")
+    del f32
+
+    kernel.launches = 0
+    t0 = time.monotonic()
+    results = bf16.transcribe_batch(clips)
+    dt = time.monotonic() - t0
+    check_results(results, cfg, "(i1)")
+    after_batch = kernel.launches
+    print(f"(i1) bf16 transcribe_batch of {N_CLIPS} x 12 s clips: {dt:.3f} s,"
+          f" {N_CLIPS / dt:.2f} clips/s; vqt kernel launches {after_batch}")
+    check(after_batch > 0, "the bf16 batch went through the vqt kernel")
+    phase_server(make_server, bf16, "(i1)", n_requests=1)
+    check(kernel.launches > after_batch,
+          "the bf16 server went through the vqt kernel")
+    return kernel.launches
 
 
 def phase_train_f64(torch, tmodels, tstep, tlayers):
@@ -389,9 +501,10 @@ def phase_train_f64(torch, tmodels, tstep, tlayers):
     check(moved > 1e-6, "(g1) the step changed the model")
 
 
-def phase_train_full(torch, tmodels, tstep, tvqt, launches_of):
-    """(g2) Full-width training from audio on the card."""
-    from piano_a2s_tpu_torch.train.synthetic import audio_batch
+def full_width_training(tmodels, tstep, tvqt):
+    """(g2)'s and (i2)'s set-up: the full-width model from seed 0 on the
+    card, a snapshot of its state, its optimizer and the options of a
+    train step from audio with guided attention."""
     cfg = tmodels.ModelConfig()
     model = tmodels.ScoreTranscription(cfg)
     model.load_state_dict(tmodels.init_state_dict(cfg, seed=0), strict=True)
@@ -402,14 +515,30 @@ def phase_train_full(torch, tmodels, tstep, tvqt, launches_of):
                 max_frame_num=1201, ga_weight=1.0, ga_sigma=0.15,
                 ga_dur_frac=tstep.duration_fraction_table(cfg.vocab_size),
                 device="cuda")
+    return cfg, model, before, optimizer, opts
+
+
+def train_batch(cfg, i):
+    """The i-th training batch of (g2) and (i2): 4 x 12 s of int16 noise
+    with random targets."""
+    from piano_a2s_tpu_torch.train.synthetic import audio_batch
+    return audio_batch(cfg, TRAIN_CLIPS, CLIP_SAMPLES, seed=200 + i,
+                       targets_seed=300 + i)
+
+
+def phase_train_full(torch, tmodels, tstep, tvqt, launches_of):
+    """(g2) Full-width training from audio on the card."""
+    cfg, model, before, optimizer, opts = full_width_training(
+        tmodels, tstep, tvqt)
     t_step, _ = tstep.make_train_steps(optimizer, **opts)
     t_accum, _ = tstep.make_train_steps(optimizer, accum_steps=2, **opts)
     gen = torch.Generator("cuda").manual_seed(0)
+    print(f"(g2) device memory allocated before the steps: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     torch.cuda.reset_peak_memory_stats()
     seconds, losses = [], []
     for i in range(TRAIN_STEPS + 1):
-        batch = audio_batch(cfg, TRAIN_CLIPS, CLIP_SAMPLES, seed=200 + i,
-                            targets_seed=300 + i)
+        batch = train_batch(cfg, i)
         accum = i == TRAIN_STEPS
         launched = launches_of()
         t0 = time.monotonic()
@@ -440,6 +569,54 @@ def phase_train_full(torch, tmodels, tstep, tvqt, launches_of):
     check(all(k in changed for k in bn), "(g2) BN running statistics moved")
     check(sum(1 for k, _ in model.named_parameters() if k in changed)
           == n_params, "(g2) every parameter moved")
+    return seconds, peak
+
+
+def phase_train_bf16(torch, tmodels, tstep, tvqt, launches_of, f32_peak):
+    """(i2) (g2)'s setting with the ConvStack in bf16 (conv_dtype): 2
+    train_steps on (g2)'s first two batches. Returns (seconds, peak)."""
+    cfg, model, before, optimizer, opts = full_width_training(
+        tmodels, tstep, tvqt)
+    t_step, _ = tstep.make_train_steps(optimizer, conv_dtype=torch.bfloat16,
+                                       **opts)
+    gen = torch.Generator("cuda").manual_seed(0)
+    print(f"(i2) device memory allocated before the steps: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for i in range(BF16_TRAIN_STEPS):
+        launched = launches_of()
+        t0 = time.monotonic()
+        out = t_step(model, train_batch(cfg, i), gen, 0.7)
+        torch.cuda.synchronize()
+        seconds.append(time.monotonic() - t0)
+        comps = {k: float(v) for k, v in out.components.items()}
+        print(f"(i2) bf16 train_step {i}: {seconds[-1]:.3f} s, loss "
+              f"{float(out.loss):.4f} "
+              + ", ".join(f"{k} {v:.4f}" for k, v in comps.items())
+              + f", grad norm {float(out.grad_norm):.3f}")
+        check(all(np.isfinite(v) for v in comps.values())
+              and np.isfinite(float(out.loss)), "(i2) finite losses")
+        check(launches_of() == launched + 1,
+              "(i2) one vqt kernel launch per batch")
+    peak = torch.cuda.max_memory_allocated()
+    after = model.state_dict()
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    print(f"(i2) {BF16_TRAIN_STEPS} bf16 train_steps at {TRAIN_CLIPS} x 12 s,"
+          f" full width: seconds per step {[round(s, 3) for s in seconds]}; "
+          f"peak device memory {peak / 2**30:.2f} GiB, (g2)'s float32 "
+          f"{f32_peak / 2**30:.2f} GiB; {len(changed)} of {len(before)} "
+          f"state tensors changed")
+    check(all(k in changed for k in before if "running_" in k),
+          "(i2) BN running statistics moved")
+    check(all(k in changed for k, _ in model.named_parameters()),
+          "(i2) every parameter moved")
+    check(all(v.dtype == before[k].dtype for k, v in after.items()),
+          "(i2) parameters and BN statistics kept their float32")
+    check(all(s[k].dtype == torch.float32 for s in optimizer.state.values()
+              for k in ("square_avg", "acc_delta")),
+          "(i2) Adadelta state float32")
+    check(peak < f32_peak, "(i2) bf16 peak below (g2)'s float32 peak")
     return seconds, peak
 
 
@@ -723,17 +900,11 @@ def main():
     vqt_magnitude_cuda.launches = 0
     t0 = time.monotonic()
     results = gpu.transcribe_batch(clips)
-    dt = time.monotonic() - t0
-    check(len(results) == N_CLIPS, "one result per clip")
-    for bars in results:
-        check(len(bars) == cfg.max_bars, "bars per clip")
-        for key, ts, lower, upper in bars:
-            check(-6 <= key <= 7 and "/" in ts, "key and time signature")
-            check(len(upper) <= cfg.max_length[0]
-                  and len(lower) <= cfg.max_length[1], "staff lengths")
+    e_seconds = time.monotonic() - t0
+    check_results(results, cfg, "(e)")
     after_batch = vqt_magnitude_cuda.launches
-    print(f"(e) transcribe_batch of {N_CLIPS} x 12 s clips: {dt:.3f} s, "
-          f"{N_CLIPS / dt:.2f} clips/s; vqt kernel launches "
+    print(f"(e) transcribe_batch of {N_CLIPS} x 12 s clips: {e_seconds:.3f} "
+          f"s, {N_CLIPS / e_seconds:.2f} clips/s; vqt kernel launches "
           f"{after_batch}")
     check(after_batch > 0, "the batch went through the vqt kernel")
     phase_server(make_server, gpu)
@@ -746,9 +917,10 @@ def main():
 
     # (g) training; (g2) is the training path, with the counts zeroed first.
     phase_train_f64(torch, tmodels, tstep, tlayers)
+    gc.collect()  # (g2)'s and (i2)'s peaks start from what is still live
     vqt_magnitude_cuda.launches = 0
-    phase_train_full(torch, tmodels, tstep, tvqt,
-                     lambda: vqt_magnitude_cuda.launches)
+    _, f32_peak = phase_train_full(torch, tmodels, tstep, tvqt,
+                                   lambda: vqt_magnitude_cuda.launches)
     launches["train"] = vqt_magnitude_cuda.launches
     print(f"(g2) vqt kernel launches over (g2): {launches['train']}")
     check(launches["train"] == TRAIN_STEPS + 2,
@@ -766,6 +938,24 @@ def main():
     check(launches["trainer"] == expected,
           "the harness path launched the vqt kernel once per train batch, "
           "eval batch and transcribe call")
+
+    # (i) the bf16 paths, each with its own launch count: serving (i1),
+    # zeroed inside it just before its path; training (i2).
+    t_i = time.monotonic()
+    launches["serve_bf16"] = phase_serve_bf16(
+        torch, tvqt, Transcriber, make_server, state_dict, cfg, clips,
+        e_seconds, vqt_magnitude_cuda)
+    print(f"(i1) vqt kernel launches over the bf16 serving path: "
+          f"{launches['serve_bf16']}")
+    gc.collect()
+    vqt_magnitude_cuda.launches = 0
+    phase_train_bf16(torch, tmodels, tstep, tvqt,
+                     lambda: vqt_magnitude_cuda.launches, f32_peak)
+    launches["train_bf16"] = vqt_magnitude_cuda.launches
+    print(f"(i2) vqt kernel launches over (i2): {launches['train_bf16']}; "
+          f"(i) took {time.monotonic() - t_i:.1f} s")
+    check(launches["train_bf16"] == BF16_TRAIN_STEPS,
+          "the bf16 training path went through the vqt kernel")
     check("jax" not in sys.modules, "no jax imported")
     check(not any(m == "piano_a2s_tpu" or m.startswith("piano_a2s_tpu.")
                   for m in sys.modules), "nothing of the JAX package imported")

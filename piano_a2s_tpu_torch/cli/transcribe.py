@@ -3,7 +3,7 @@ PyTorch port.
 
 Usage:
     python -m piano_a2s_tpu_torch.cli.transcribe input.wav [more.wav ...] \
-        [--checkpoint CKPT] [--out-dir DIR] [--device cuda|cpu]
+        [--checkpoint CKPT] [--out-dir DIR] [--device cuda|cpu] [--bf16]
 
 Each input becomes {out-dir}/{stem}.krn/.xml/.mid. Clips longer than 12 s
 are truncated (the model's capability envelope).
@@ -27,6 +27,9 @@ def main(argv=None):
                              "one CKPT+... directory of it ("
                              "default: random weights — smoke mode)")
     parser.add_argument("--out-dir", default=".")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 conv stack and decode loop (the "
+                             "softmaxes and log-probs stay float32)")
     parser.add_argument("--batch-size", type=int, default=16,
                         help="batch size for many-file jobs (>4 inputs "
                              "stream through transcribe_stream)")
@@ -38,19 +41,22 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     import numpy as np
+    import torch
 
     from piano_a2s_tpu_torch.infer import load_transcriber, result_to_files
     from piano_a2s_tpu_torch.utils.audio import (read_wav, read_wav_pcm16,
                                                  resample)
 
+    decode_dtype = torch.bfloat16 if args.bf16 else None
     if args.config:
         from piano_a2s_tpu_torch.config import load_configs
         cfg, vqt_cfg, max_frame_num = load_configs(args.config)
         tr = load_transcriber(args.checkpoint, cfg=cfg, vqt_cfg=vqt_cfg,
                               max_frame_num=max_frame_num,
-                              device=args.device)
+                              device=args.device, decode_dtype=decode_dtype)
     else:
-        tr = load_transcriber(args.checkpoint, device=args.device)
+        tr = load_transcriber(args.checkpoint, device=args.device,
+                              decode_dtype=decode_dtype)
     os.makedirs(args.out_dir, exist_ok=True)
 
     def clip_gen():

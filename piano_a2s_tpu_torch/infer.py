@@ -31,17 +31,27 @@ from .utils.device import resolve_device, use_full_float32
 class Transcriber:
     """A model and its VQT filters on one device, for repeated calls.
 
-    Float32 matmuls and cuDNN convolutions run without TF32 (the process-
-    wide flags are set here): the JAX package is the float32 reference.
-    Every tensor is created on ``self.device`` explicitly, so the server's
-    worker thread can call in.
+    Float32 matmuls and cuDNN convolutions run without TF32, and bfloat16
+    matmuls reduce in float32 (the process-wide flags are set here): the
+    JAX package is the reference. Every tensor is created on
+    ``self.device`` explicitly, so the server's worker thread can call in.
+
+    ``decode_dtype`` None decodes in float32; torch.bfloat16 runs the
+    ConvStack and the note decoders' loop in bfloat16, the softmaxes and
+    the emitted log-probs in float32 (ScoreTranscription.forward). The
+    weights stay float32; the bf16 copies are made per call.
     """
 
     def __init__(self, state_dict, cfg: ModelConfig = ModelConfig(),
                  vqt_cfg: VQTConfig = VQTConfig(),
-                 max_frame_num: int = 1201, device="cuda"):
+                 max_frame_num: int = 1201, device="cuda",
+                 decode_dtype: Optional[torch.dtype] = None):
+        if decode_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"decode_dtype={decode_dtype}: supported "
+                             "values are None (float32) and torch.bfloat16")
         self.device = resolve_device(device)
         use_full_float32()
+        self.decode_dtype = decode_dtype
         self.cfg = cfg
         self.vqt_cfg = vqt_cfg
         self.max_frame_num = max_frame_num
@@ -74,7 +84,8 @@ class Transcriber:
         else:
             spec = torch.nn.functional.pad(
                 spec, (0, 0, 0, self.max_frame_num - t))
-        ts, key, _, _, aux = self.model(spec[:, None])
+        ts, key, _, _, aux = self.model(spec[:, None],
+                                        decode_dtype=self.decode_dtype)
         return (ts.argmax(-1).to(torch.uint8), key.argmax(-1).to(torch.uint8),
                 aux["upper_tokens"].to(torch.uint8),
                 aux["lower_tokens"].to(torch.uint8),
@@ -191,11 +202,14 @@ def load_transcriber(checkpoint: Optional[str] = None,
                      cfg: ModelConfig = ModelConfig(),
                      vqt_cfg: VQTConfig = VQTConfig(),
                      seed: int = 0, max_frame_num: int = 1201,
-                     device="cuda") -> Transcriber:
+                     device="cuda",
+                     decode_dtype: Optional[torch.dtype] = None
+                     ) -> Transcriber:
     """A Transcriber from ``checkpoint``: a torch checkpoint file
     (.ckpt/.pt/.pth), a save folder of the port's training commands (its
     best checkpoint by WER), one ``CKPT+...`` directory of such a folder,
-    or, with checkpoint=None, random weights drawn from ``seed``."""
+    or, with checkpoint=None, random weights drawn from ``seed``.
+    ``decode_dtype``: see Transcriber."""
     if checkpoint is None:
         state_dict = init_state_dict(cfg, seed)
     elif os.path.isdir(checkpoint):
@@ -208,7 +222,7 @@ def load_transcriber(checkpoint: Optional[str] = None,
             "(.ckpt/.pt/.pth) and the save folders of its own training "
             "commands")
     return Transcriber(state_dict, cfg, vqt_cfg, max_frame_num=max_frame_num,
-                       device=device)
+                       device=device, decode_dtype=decode_dtype)
 
 
 def load_saved_model(path: str) -> Dict[str, torch.Tensor]:

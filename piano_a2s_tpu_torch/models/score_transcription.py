@@ -38,6 +38,11 @@ from ..ops import layers as L
 CONV_CHANNELS = (20, 20, 40, 40)
 
 
+def _cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """x in ``dtype``, or as it is for None (full precision)."""
+    return x if dtype is None else x.to(dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     in_channels: int = 1
@@ -104,7 +109,8 @@ class ConvStack(nn.Module):
 
     def forward_train(self, x: torch.Tensor,
                       sample_weight: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      compute_dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
         """Train: x (B, C_in, T, F) -> (B, T, conv_feature_size).
 
@@ -112,18 +118,29 @@ class ConvStack(nn.Module):
         ``sample_weight``; the running buffers are written) and ReLU per
         layer, nothing folded; the flatten, the linear and ``out_bn``;
         then dropout 0.2.
+
+        ``compute_dtype`` (bf16 conv training): the input and the
+        activations are in that dtype and the conv and linear weights are
+        cast to it at use (the parameters and their gradients stay
+        float32); each BatchNorm computes its statistics and normalisation
+        in float32 and returns the compute dtype
+        (``L.batch_norm_relu_train``, which saves no float32 activation for
+        the backward). The result is in the compute dtype.
         """
-        y = x
+        def bn_relu(y, bn, axes):
+            if compute_dtype is None:
+                return F.relu(L.batch_norm_train(y, bn, axes=axes,
+                                                 weight=sample_weight))
+            return L.batch_norm_relu_train(y, bn, axes, sample_weight)
+
+        y = _cast(x, compute_dtype)
         for i in range(1, 5):
-            y = L.conv2d_same(y, getattr(self, f"conv{i}").weight)
-            y = F.relu(L.batch_norm_train(y, getattr(self, f"bn{i}"),
-                                          axes=(0, 2, 3),
-                                          weight=sample_weight))
+            y = L.conv2d_same(y, getattr(self, f"conv{i}").weight.to(y.dtype))
+            y = bn_relu(y, getattr(self, f"bn{i}"), (0, 2, 3))
         bsz, c, t, f = y.shape
         y = y.permute(0, 2, 1, 3).reshape(bsz, t, c * f)
-        y = L.linear(y, self.out.weight, self.out.bias)
-        y = F.relu(L.batch_norm_train(y, self.out_bn, axes=(0, 1),
-                                      weight=sample_weight))
+        y = L.linear(y, self.out.weight.to(y.dtype), self.out.bias)
+        y = bn_relu(y, self.out_bn, (0, 1))
         return L.dropout(y, 0.2, True, generator)
 
 
@@ -161,6 +178,27 @@ class NoteDecoder(nn.Module):
         self.out = nn.Linear(4 * h, cfg.vocab_size)
 
 
+def _stack_staves(upper: NoteDecoder, lower: NoteDecoder,
+                  dtype: Optional[torch.dtype] = None) -> tuple:
+    """Both staves' weights stacked on a leading axis of 2, right-multiply
+    layouts: (emb, w_q, v, w_ih, b_ih, w_hh, b_hh, w_out, b_out), each
+    cast to ``dtype`` if given (the bf16 decode's operands). Differentiable:
+    the stack and the cast are part of the graph."""
+    def both(fn):
+        return _cast(torch.stack([fn(upper), fn(lower)]), dtype)
+
+    return (
+        both(lambda d: d.embedding.weight),                       # (2, V, E)
+        both(lambda d: d.attn.w_query).transpose(1, 2),           # (2, 2H, H)
+        both(lambda d: d.attn.v.weight[0]),                       # (2, H)
+        both(lambda d: d.gru.weight_ih_l0).transpose(1, 2),
+        both(lambda d: d.gru.bias_ih_l0),
+        both(lambda d: d.gru.weight_hh_l0).transpose(1, 2),
+        both(lambda d: d.gru.bias_hh_l0),
+        both(lambda d: d.out.weight).transpose(1, 2),             # (2, 4H, V)
+        both(lambda d: d.out.bias))
+
+
 @dataclasses.dataclass
 class DualDecodeParams:
     """Upper and lower staff decoder weights stacked on a leading axis of 2,
@@ -176,30 +214,26 @@ class DualDecodeParams:
 
 
 def dual_decode_params(upper: NoteDecoder, lower: NoteDecoder,
-                       cfg: ModelConfig) -> DualDecodeParams:
+                       cfg: ModelConfig,
+                       dtype: Optional[torch.dtype] = None
+                       ) -> DualDecodeParams:
     """Stack both staves' weights and apply the two exact rewrites of the
     greedy step: the query projection rides in the recurrent matmul
     (h @ [W_hh | W_q]), and the token-side input projection is folded into
     the embedding table (emb @ W_ih_tok), so embed + matmul is one gather.
+
+    With ``dtype`` (bf16 decode) the weights are cast first and folded
+    after, as the JAX package does: the folded table is a bf16 product of
+    bf16 operands, not the cast of a float32 product (the two can differ
+    by a bf16 ulp, enough to flip a greedy token).
     """
     E = cfg.note_emb_size
-
-    def both(fn):
-        return torch.stack([fn(upper), fn(lower)])
-
-    w_ih = both(lambda d: d.gru.weight_ih_l0)                 # (2, 3H2, in)
-    w_hh = both(lambda d: d.gru.weight_hh_l0)                 # (2, 3H2, H2)
-    w_q = both(lambda d: d.attn.w_query)                      # (2, H, H2)
-    emb = both(lambda d: d.embedding.weight)                  # (2, V, E)
+    emb, w_q, v, w_ih, b_ih, w_hh, b_hh, w_out, b_out = _stack_staves(
+        upper, lower, dtype)
     return DualDecodeParams(
-        w_hq=torch.cat([w_hh, w_q], dim=1).transpose(1, 2),
-        b_hh=both(lambda d: d.gru.bias_hh_l0),
-        b_ih=both(lambda d: d.gru.bias_ih_l0),
-        emb_proj=torch.bmm(emb, w_ih[:, :, :E].transpose(1, 2)),
-        w_ih_ctx=w_ih[:, :, E:].transpose(1, 2),
-        v=both(lambda d: d.attn.v.weight[0]),
-        w_out=both(lambda d: d.out.weight).transpose(1, 2),
-        b_out=both(lambda d: d.out.bias))
+        w_hq=torch.cat([w_hh, w_q], dim=2), b_hh=b_hh, b_ih=b_ih,
+        emb_proj=torch.bmm(emb, w_ih[:, :E]), w_ih_ctx=w_ih[:, E:], v=v,
+        w_out=w_out, b_out=b_out)
 
 
 def _tok_proj(p: DualDecodeParams, ids2: torch.Tensor) -> torch.Tensor:
@@ -361,25 +395,6 @@ def ga_within_bar_map(gt: torch.Tensor, dur_frac: torch.Tensor, pad: int,
     return ga_within_bar_auto(gt, dur_frac, pad, sep)
 
 
-def _stack_staves(upper: NoteDecoder, lower: NoteDecoder) -> tuple:
-    """Both staves' weights stacked on a leading axis of 2, right-multiply
-    layouts: (emb, w_q, v, w_ih, b_ih, w_hh, b_hh, w_out, b_out).
-    Differentiable: the stack is part of the graph."""
-    def both(fn):
-        return torch.stack([fn(upper), fn(lower)])
-
-    return (
-        both(lambda d: d.embedding.weight),                       # (2, V, E)
-        both(lambda d: d.attn.w_query).transpose(1, 2),           # (2, 2H, H)
-        both(lambda d: d.attn.v.weight[0]),                       # (2, H)
-        both(lambda d: d.gru.weight_ih_l0).transpose(1, 2),
-        both(lambda d: d.gru.bias_ih_l0),
-        both(lambda d: d.gru.weight_hh_l0).transpose(1, 2),
-        both(lambda d: d.gru.bias_hh_l0),
-        both(lambda d: d.out.weight).transpose(1, 2),             # (2, 4H, V)
-        both(lambda d: d.out.bias))
-
-
 def _embed2(emb2: torch.Tensor, ids2: torch.Tensor) -> torch.Tensor:
     """Per-staff embedding lookup: ids (2, B) -> (2, B, E)."""
     return emb2[torch.arange(2, device=ids2.device)[:, None], ids2]
@@ -403,7 +418,9 @@ def _teacher_step(emit_full: bool, enc: torch.Tensor,
     or None).
     """
     emb, w_q, v, w_ih, b_ih, w_hh, b_hh, w_out, b_out = weights
-    tok = tok2 if drop2 is None else tok2 * drop2
+    # The dropout scale is float32 (or wider): a bf16 token embedding gets
+    # x / 0.9 rounded once, as the JAX package computes it.
+    tok = tok2 if drop2 is None else (tok2 * drop2).to(tok2.dtype)
     q2 = torch.bmm(h2, w_q)                                      # (2, B, H)
     energy = torch.tanh(enc_proj2 + q2[:, :, None, :])           # (2,B,T,H)
     scores = torch.einsum("sbth,sh->sbt", energy, v)
@@ -471,8 +488,9 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
                                           device=dev))
     drops = None
     if train:
-        drops = L.dropout(torch.ones((T,) + tok2.shape, dtype=tok2.dtype,
-                                     device=dev), 0.1, train, generator)
+        drops = L.dropout(torch.ones((T,) + tok2.shape, device=dev,
+                                     dtype=L.float32_or_wider(tok2.dtype)),
+                          0.1, train, generator)
     coins = torch.rand((T, 2), generator=generator, device=dev) < tf_ratio
     guides = None
     if ga_frac is not None:
@@ -570,21 +588,36 @@ class HierarchicalDecoder(nn.Module):
         key0 = self.key_emb.weight[cfg.num_keys].expand(B, -1)
         return torch.cat([staff0, staff0, time0, key0], dim=-1)
 
-    def forward(self, enc: torch.Tensor, hidden: torch.Tensor):
+    def _note_operands(self, enc: torch.Tensor,
+                       decode_dtype: Optional[torch.dtype]):
+        """The note decoders' encoder operands: (enc, both staves' attention
+        projections (2, B, T, H)), computed from the float32 ``enc`` and
+        cast to ``decode_dtype`` if given."""
+        enc_proj2 = torch.stack([
+            A.precompute_enc_proj(self.upper_decoder.attn, enc),
+            A.precompute_enc_proj(self.lower_decoder.attn, enc)])
+        return _cast(enc, decode_dtype), _cast(enc_proj2, decode_dtype)
+
+    def forward(self, enc: torch.Tensor, hidden: torch.Tensor,
+                decode_dtype: Optional[torch.dtype] = None):
         """Greedy decode of max_bars bars (no ground truth).
 
         Returns (time_sig_logp (B, bars, 7), key_logp (B, bars, 14),
         upper_logp (B, bars, Tu, V), lower_logp (B, bars, Tl, V), aux) with
         aux holding per-bar tokens (B, bars, T_s) and lengths (B, bars).
+
+        ``decode_dtype`` (bf16 decode): the note decoders' loop runs on
+        copies of enc, of its attention projections, of the bar summary
+        and of the staves' weights in that dtype; their softmaxes and
+        log-softmaxes, and the emitted log-probs, stay float32. The bar
+        level (attention, GRU, heads, staff summaries) stays float32.
         """
         cfg = self.cfg
         B, dev = enc.shape[0], enc.device
         enc_proj_bar = A.precompute_enc_proj(self.attn, enc)
-        enc_proj2 = torch.stack([
-            A.precompute_enc_proj(self.upper_decoder.attn, enc),
-            A.precompute_enc_proj(self.lower_decoder.attn, enc)])
+        enc_dec, enc_proj2 = self._note_operands(enc, decode_dtype)
         dual = dual_decode_params(self.upper_decoder, self.lower_decoder,
-                                  cfg)
+                                  cfg, decode_dtype)
 
         token = self.sos_token(B, dev)
         t_s = max(cfg.max_length)
@@ -597,8 +630,8 @@ class HierarchicalDecoder(nn.Module):
                                      hidden)
             hidden = bar_summary
             (up_logp, up_tok, up_len), (low_logp, low_tok, low_len) = \
-                note_decoder_dual_infer(dual, cfg, enc, enc_proj2,
-                                        bar_summary)
+                note_decoder_dual_infer(dual, cfg, enc_dec, enc_proj2,
+                                        bar_summary.to(enc_dec.dtype))
             head_in = torch.cat([bar_summary, context], dim=-1)
             ts_logp = torch.log_softmax(self.time_sig_out(head_in), dim=-1)
             key_logp = torch.log_softmax(self.key_out(head_in), dim=-1)
@@ -629,7 +662,8 @@ class HierarchicalDecoder(nn.Module):
                                emit_full: bool = True,
                                ga_sigma: float = 0.0, ga_dur_frac=None,
                                ga_content: Optional[torch.Tensor] = None,
-                               ga_map: str = "auto"):
+                               ga_map: str = "auto",
+                               decode_dtype: Optional[torch.dtype] = None):
         """Decode max_bars bars against ``ground_truth`` = (time_sig
         (B, bars), key (B, bars), upper (B, bars, Tu), upper_len (B, bars),
         lower (B, bars, Tl), lower_len (B, bars)).
@@ -643,6 +677,8 @@ class HierarchicalDecoder(nn.Module):
         outputs are the log-probs at the ground-truth tokens (B, bars, T).
         ga_sigma > 0 in training turns on the guided-attention penalty
         (see note_decoder_dual_scan): aux["ga_num"] (B, bars, 2).
+        ``decode_dtype`` casts the note decoders' operands as the greedy
+        forward does; the emitted log-probs stay float32.
 
         The staves' lengths come from the ground truth's EOS (coupled
         across the batch) and reach the host once per call, for the
@@ -663,10 +699,9 @@ class HierarchicalDecoder(nn.Module):
             raise ValueError(f"ground truth widths ({t_up}, {t_low}) exceed "
                              f"max_length {tuple(cfg.max_length)}")
         enc_proj_bar = A.precompute_enc_proj(self.attn, enc)
-        enc_proj2 = torch.stack([
-            A.precompute_enc_proj(self.upper_decoder.attn, enc),
-            A.precompute_enc_proj(self.lower_decoder.attn, enc)])
-        dual = _stack_staves(self.upper_decoder, self.lower_decoder)
+        enc_dec, enc_proj2 = self._note_operands(enc, decode_dtype)
+        dual = _stack_staves(self.upper_decoder, self.lower_decoder,
+                             decode_dtype)
         use_ga = ga_sigma > 0 and train
         if use_ga and ga_dur_frac is not None:
             ga_dur_frac = torch.as_tensor(ga_dur_frac, dtype=torch.float32,
@@ -700,7 +735,8 @@ class HierarchicalDecoder(nn.Module):
             hidden = bar_summary
             (up_logp, up_tok), (low_logp, low_tok), ga_num = \
                 note_decoder_dual_scan(
-                    dual, cfg, enc, enc_proj2, bar_summary, up_gt[:, j],
+                    dual, cfg, enc_dec, enc_proj2,
+                    bar_summary.to(enc_dec.dtype), up_gt[:, j],
                     low_gt[:, j], torch.stack([up_len[j], low_len[j]]),
                     tf_ratio, train, generator, emit_full=emit_full,
                     ga_frac=(j / bars, 1.0 / bars) if use_ga else None,
@@ -759,7 +795,9 @@ class ScoreTranscription(nn.Module):
                 sample_weight: Optional[torch.Tensor] = None,
                 ga_sigma: float = 0.0, ga_dur_frac=None,
                 ga_content: Optional[torch.Tensor] = None,
-                ga_map: str = "auto", conv_dtype=None,
+                ga_map: str = "auto",
+                conv_dtype: Optional[torch.dtype] = None,
+                decode_dtype: Optional[torch.dtype] = None,
                 generator: Optional[torch.Generator] = None):
         """spectrogram (B, 1, T, F) -> (time_sig_logp, key_logp,
         upper_logp, lower_logp, aux).
@@ -771,23 +809,26 @@ class ScoreTranscription(nn.Module):
         (weighted by ``sample_weight``; the BatchNorm running buffers are
         written in place), dropout drawn from ``generator`` and the
         guided-attention penalty; train=False folds the running statistics
-        and drops nothing. ``conv_dtype`` (bf16 conv training) is not
-        ported yet and raises.
+        and drops nothing.
+
+        Reduced precision, as the JAX package's forward has it:
+        ``decode_dtype`` (e.g. torch.bfloat16) runs the note decoders' loop
+        on operands of that dtype and, when not training, the ConvStack on
+        the spectrogram cast to it (BN folded in float32, then cast).
+        ``conv_dtype`` (training only) runs the ConvStack in that dtype
+        (``ConvStack.forward_train``'s compute_dtype). The encoder always
+        takes float32 (or wider) features.
         """
-        if conv_dtype is not None:
-            raise NotImplementedError(
-                f"conv_dtype={conv_dtype}: reduced-precision conv training "
-                "is not ported yet")
         if ground_truth is None:
             if train:
                 raise ValueError("the training forward needs ground_truth")
-            return self._greedy(spectrogram)
+            return self._greedy(spectrogram, decode_dtype)
         with record_function("forward/convstack"):
             if train:
                 feats = self.convstack.forward_train(
-                    spectrogram, sample_weight, generator)
+                    spectrogram, sample_weight, generator, conv_dtype)
             else:
-                feats = self.convstack(spectrogram)
+                feats = self.convstack(_cast(spectrogram, decode_dtype))
         with record_function("forward/encoder"):
             enc, hidden = self.encoder(
                 feats.to(L.float32_or_wider(feats.dtype)))
@@ -796,9 +837,10 @@ class ScoreTranscription(nn.Module):
                 enc, hidden, ground_truth, tf_ratio, train, generator,
                 emit_full=emit_full, ga_sigma=ga_sigma,
                 ga_dur_frac=ga_dur_frac, ga_content=ga_content,
-                ga_map=ga_map)
+                ga_map=ga_map, decode_dtype=decode_dtype)
 
     @torch.no_grad()
-    def _greedy(self, spectrogram: torch.Tensor):
-        enc, hidden = self.encode(spectrogram)
-        return self.decoder(enc, hidden)
+    def _greedy(self, spectrogram: torch.Tensor,
+                decode_dtype: Optional[torch.dtype] = None):
+        enc, hidden = self.encode(_cast(spectrogram, decode_dtype))
+        return self.decoder(enc, hidden, decode_dtype)

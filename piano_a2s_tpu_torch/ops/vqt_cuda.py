@@ -77,7 +77,11 @@ def pack_filters(cos_k: torch.Tensor, sin_k: torch.Tensor) -> torch.Tensor:
 
 def _packed(cos_k: torch.Tensor, sin_k: torch.Tensor) -> torch.Tensor:
     """``pack_filters`` of this filter pair, computed once and kept while
-    cos_k lives (and neither tensor was written in place)."""
+    cos_k lives (and neither tensor was written in place). Filters made
+    under ``torch.inference_mode`` have no version counter to tell a write,
+    so such a pair is packed on every call."""
+    if cos_k.is_inference() or sin_k.is_inference():
+        return pack_filters(cos_k, sin_k)
     key = (sin_k, cos_k._version, sin_k._version)
     with _packed_lock:
         hit = _packed_cache.get(cos_k)

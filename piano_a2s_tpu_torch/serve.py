@@ -8,7 +8,7 @@ piano_a2s_tpu/serve.py's; they only call the Transcriber's
 ``prepare_batch`` / ``transcribe_prepared`` and read its ``cfg``,
 ``vqt_cfg`` and ``max_samples``.
 
-    python -m piano_a2s_tpu_torch.serve --port 8080
+    python -m piano_a2s_tpu_torch.serve --port 8080 [--bf16]
     curl -s --data-binary @clip.wav localhost:8080/transcribe
     curl -s --data-binary @clip.wav 'localhost:8080/transcribe?format=kern'
 
@@ -409,6 +409,9 @@ def main(argv=None):
                         help="experiment YAML for model dims")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8080)
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 conv stack and decode loop (the "
+                             "softmaxes and log-probs stay float32)")
     parser.add_argument("--max-batch", type=int, default=16)
     parser.add_argument("--max-wait-ms", type=float, default=20.0,
                         help="batching window after the first request")
@@ -424,14 +427,16 @@ def main(argv=None):
                         help="torch device (cuda, cuda:N or cpu)")
     args = parser.parse_args(argv)
 
+    decode_dtype = torch.bfloat16 if args.bf16 else None
     if args.config:
         from .config import load_configs
         cfg, vqt_cfg, max_frame_num = load_configs(args.config)
         tr = load_transcriber(args.checkpoint, cfg=cfg, vqt_cfg=vqt_cfg,
                               max_frame_num=max_frame_num,
-                              device=args.device)
+                              device=args.device, decode_dtype=decode_dtype)
     else:
-        tr = load_transcriber(args.checkpoint, device=args.device)
+        tr = load_transcriber(args.checkpoint, device=args.device,
+                              decode_dtype=decode_dtype)
     warm(tr, args.max_batch)
 
     httpd = make_server(tr, args.host, args.port,

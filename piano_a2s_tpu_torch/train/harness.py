@@ -77,12 +77,20 @@ class Trainer:
         self.exp = exp
         self.cfg = exp.model_config()
         self.device = resolve_device(device)
+        # Mixed-precision ConvStack training (extras `train_dtype:
+        # bfloat16`): the conv stack computes and keeps its activations in
+        # bf16, its BatchNorm statistics in float32; the parameters, the
+        # decoder and the losses stay float32.
+        self.conv_dtype = None
         train_dtype = exp.extras.get("train_dtype")
         if train_dtype not in (None, "", "float32", "f32"):
-            raise ValueError(
-                f"train_dtype={train_dtype!r}: the port trains in float32 "
-                "only; bfloat16 conv training waits for the bf16 slice "
-                "(ROADMAP Queue 1 item 1)")
+            try:
+                self.conv_dtype = {"bfloat16": torch.bfloat16,
+                                   "bf16": torch.bfloat16}[str(train_dtype)]
+            except KeyError:
+                raise ValueError(
+                    f"train_dtype={train_dtype!r}: supported values are "
+                    f"'bfloat16' (or 'float32' for the default)") from None
         if exp.extras.get("eval_decode_chunk") is not None:
             raise ValueError(
                 "eval_decode_chunk: the chunked decode is on ROADMAP's "
@@ -130,13 +138,17 @@ class Trainer:
                     f"upload_dtype={choice!r}: audio batches support "
                     f"'int16' or 'float32'") from None
         else:
-            # Spectrogram batches: float32 unless asked for (legacy
-            # `upload_f16: true/false` maps to float16/float32).
+            # Spectrogram batches: uint8 under bf16 training (its 1/255
+            # steps are about the size of bf16's own rounding near 1, where
+            # the conv stack casts them), float32 otherwise, unless asked
+            # for (legacy `upload_f16: true/false` maps to float16/float32).
             choice = exp.extras.get("upload_dtype")
             if choice is None:
                 legacy = exp.extras.get("upload_f16")
                 if legacy is not None:
                     choice = "float16" if legacy else "float32"
+                elif self.conv_dtype is not None:
+                    choice = "uint8"
             if choice is not None:
                 try:
                     self.upload_dtype = {
@@ -169,7 +181,8 @@ class Trainer:
             from_audio=self.from_audio, vqt_cfg=exp.vqt_config(),
             max_frame_num=exp.max_frame_num, ga_weight=self.ga_weight,
             ga_sigma=self.ga_sigma, ga_dur_frac=self.ga_dur_frac,
-            ga_map=self.ga_map, device=self.device)
+            ga_map=self.ga_map, conv_dtype=self.conv_dtype,
+            device=self.device)
         # Length bucketing: a batch whose longest target is far below the
         # caps decodes to a shorter width (rounded up to bucket_tokens);
         # exact, as the cut positions are all <pad>. 0 disables it.

@@ -138,13 +138,13 @@ def _restore(model: torch.nn.Module, saved) -> None:
 
 
 def _forward(model: ScoreTranscription, batch: Batch, generator, tf_ratio,
-             ga_weight, ga_sigma, ga_dur_frac, ga_map):
+             ga_weight, ga_sigma, ga_dur_frac, ga_map, conv_dtype):
     return model(batch["spectrogram"], train=True,
                  ground_truth=_ground_truth(batch), tf_ratio=tf_ratio,
                  emit_full=False, sample_weight=batch.get("sample_weight"),
                  ga_sigma=(ga_sigma if ga_weight else 0.0),
                  ga_dur_frac=ga_dur_frac, ga_content=batch.get("ga_content"),
-                 ga_map=ga_map, generator=generator)
+                 ga_map=ga_map, conv_dtype=conv_dtype, generator=generator)
 
 
 def _clip_and_update(model: ScoreTranscription,
@@ -176,13 +176,17 @@ def train_step(model: ScoreTranscription, optimizer: torch.optim.Optimizer,
                batch: Batch, generator: Optional[torch.Generator],
                tf_ratio: float, prep: Callable[[Batch], Batch] = _promote_staged,
                ga_weight: float = 0.0, ga_sigma: float = 0.15,
-               ga_dur_frac=None, ga_map: str = "auto") -> StepOutput:
+               ga_dur_frac=None, ga_map: str = "auto",
+               conv_dtype: Optional[torch.dtype] = None) -> StepOutput:
     """One optimizer step on ``batch`` (tensors on the model's device).
 
     The fused-loss forward (emit_full=False) feeds the NLL with the
     log-probs at the targets only. ``prep`` maps the batch to the model's
     input (the staged-dtype promotion, or the audio frontend). Dropout
-    masks and teacher-forcing coins come from ``generator``."""
+    masks and teacher-forcing coins come from ``generator``.
+    ``conv_dtype`` (torch.bfloat16) runs the ConvStack in mixed precision
+    (ScoreTranscription.forward); parameters, their gradients, the
+    optimizer state and the BN buffers stay float32."""
     # A zero-width guide is no guide.
     ga_weight = ga_weight if ga_sigma > 0 else 0.0
     model.train()  # cuDNN's RNN backward needs the training mode
@@ -192,7 +196,7 @@ def train_step(model: ScoreTranscription, optimizer: torch.optim.Optimizer,
     optimizer.zero_grad(set_to_none=True)
     with record_function("train_step/forward"):
         outs = _forward(model, batch, generator, tf_ratio, ga_weight,
-                        ga_sigma, ga_dur_frac, ga_map)
+                        ga_sigma, ga_dur_frac, ga_map, conv_dtype)
     with record_function("train_step/loss"):
         loss, comps = transcription_loss_fused(
             outs, batch, model.cfg.pad,
@@ -211,7 +215,8 @@ def train_step_accum(model: ScoreTranscription,
                      accum_steps: int,
                      prep: Callable[[Batch], Batch] = _promote_staged,
                      ga_weight: float = 0.0, ga_sigma: float = 0.15,
-                     ga_dur_frac=None, ga_map: str = "auto") -> StepOutput:
+                     ga_dur_frac=None, ga_map: str = "auto",
+                     conv_dtype: Optional[torch.dtype] = None) -> StepOutput:
     """One optimizer step on ``batch`` split into ``accum_steps``
     microbatches run one after another, so the activations are those of
     one microbatch.
@@ -243,7 +248,7 @@ def train_step_accum(model: ScoreTranscription,
                        for k, v in batch.items()})
         with record_function("train_step/forward"):
             outs = _forward(model, mb, generator, tf_ratio, ga_weight,
-                            ga_sigma, ga_dur_frac, ga_map)
+                            ga_sigma, ga_dur_frac, ga_map, conv_dtype)
         with record_function("train_step/loss"):
             nums = fused_component_sums(
                 outs, mb, model.cfg.pad,
@@ -293,7 +298,8 @@ def make_train_steps(optimizer: torch.optim.Optimizer, accum_steps: int = 1,
                      vqt_cfg: Optional[VQTConfig] = None,
                      max_frame_num: int = 1201, ga_weight: float = 0.0,
                      ga_sigma: float = 0.15, ga_dur_frac=None,
-                     ga_map: str = "auto", device="cuda"):
+                     ga_map: str = "auto",
+                     conv_dtype: Optional[torch.dtype] = None, device="cuda"):
     """(train_step(model, batch, generator, tf_ratio) -> StepOutput,
     eval_step(model, batch) -> (StepOutput, predictions)) for a model and
     ``optimizer`` on ``device``: the counterpart of the JAX package's
@@ -302,8 +308,10 @@ def make_train_steps(optimizer: torch.optim.Optimizer, accum_steps: int = 1,
     Batches may hold numpy arrays; they are moved to ``device``.
     accum_steps > 1 splits each batch into that many microbatches
     (train_step_accum). from_audio=True takes "audio" batches and runs the
-    log-VQT frontend on the device inside both steps. ``device`` defaults
-    to CUDA and raises without it; on the card TF32 is turned off.
+    log-VQT frontend on the device inside both steps. conv_dtype=
+    torch.bfloat16 trains the ConvStack in mixed precision; the eval step
+    stays float32, as the JAX package's does. ``device`` defaults to CUDA
+    and raises without it; on the card TF32 is turned off.
     """
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -311,7 +319,7 @@ def make_train_steps(optimizer: torch.optim.Optimizer, accum_steps: int = 1,
     prep = (make_audio_frontend(vqt_cfg, max_frame_num, dev) if from_audio
             else _promote_staged)
     opts = dict(prep=prep, ga_weight=ga_weight, ga_sigma=ga_sigma,
-                ga_dur_frac=ga_dur_frac, ga_map=ga_map)
+                ga_dur_frac=ga_dur_frac, ga_map=ga_map, conv_dtype=conv_dtype)
     if accum_steps > 1:
         step = functools.partial(train_step_accum, accum_steps=accum_steps,
                                  **opts)

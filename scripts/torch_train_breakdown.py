@@ -95,7 +95,7 @@ def main(argv=None):
 
     def forward():
         tstep._forward(model, b, gen, 0.7, ga["ga_weight"], ga["ga_sigma"],
-                       ga["ga_dur_frac"], "auto")
+                       ga["ga_dur_frac"], "auto", None)
 
     with_grad = timed(forward)
     with torch.no_grad():

@@ -491,7 +491,7 @@ def test_pretrain_then_finetune_commands_from_audio(tmp_path):
 # --- options -----------------------------------------------------------------
 
 @pytest.mark.parametrize("extras,match", [
-    ({"train_dtype": "bfloat16"}, "bf16 slice"),
+    ({"train_dtype": "int8"}, "train_dtype"),
     ({"eval_decode_chunk": "auto"}, "Not to port"),
     ({"input_features": "mel"}, "input_features"),
     ({"upload_dtype": "int8"}, "upload_dtype"),
@@ -502,7 +502,7 @@ def test_unported_and_bad_options_raise(tmp_path, extras, match):
     exp = _exp(tconfig, str(tmp_path), str(tmp_path), "o", **extras)
     with pytest.raises(ValueError, match=match):
         tharness.Trainer(exp, device="cpu")
-    if "train_dtype" not in extras and "eval_decode_chunk" not in extras:
+    if "eval_decode_chunk" not in extras:
         jexp = _exp(jconfig, str(tmp_path), str(tmp_path), "j", **extras)
         with pytest.raises(ValueError, match=match):
             jharness.Trainer(jexp)

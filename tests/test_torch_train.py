@@ -630,9 +630,6 @@ def test_training_entry_points_refuse_a_missing_card(monkeypatch):
         tstep.make_train_steps(optimizer)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tstep.make_audio_frontend()
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 1, 8, CFG.freq_bins), train=True,
-              ground_truth=_gt(_batch(b=1), torch.from_numpy), conv_dtype=torch.bfloat16)
     bad = _batch(b=1)
     bad["upper_lengths"][0, 0] = 0
     with pytest.raises(ValueError, match="at least 1"):
