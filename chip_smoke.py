@@ -62,16 +62,39 @@ Phases, each of which raises on failure:
       parameters and BN statistics moved and still float32, Adadelta state
       float32, and peak device memory below (g2)'s float32 peak; prints
       seconds per step and both peaks.
+  (j) the multi-device paths at full width. (j1) serving:
+      Transcriber(use_mesh=True) on every visible card must give (e)'s 16
+      clips (e)'s results exactly; with devices=["cuda:0", "cuda:0"] (two
+      shards, each on its own CUDA stream and host thread) each 8-clip
+      shard must equal that shard through the plain Transcriber; clips/s
+      of the plain, every-card and two-shard Transcribers in turns. (j2)
+      data-parallel training in (g2)'s setting, one step with
+      accum_steps=2 on (g2)'s first batch (row weights 1, as the Trainer
+      gives them; the plain step run twice shows the card's own spread):
+      at world size 1 over NCCL in
+      this process the loss, parameters and BN buffers must equal the
+      plain train_step_accum within 1e-6 relative, and the data-parallel
+      eval step's predictions the plain eval step's; then two ranks as
+      subprocesses on cuda:0 over gloo (NCCL refuses two ranks on one
+      card), global batch 4, each within 1e-5 of world size 1 and the two
+      identical; where there are two cards, the same over NCCL on cuda:0
+      and cuda:1. Prints seconds per step and peak memory per rank.
 
 Each main path has its own launch counts, zeroed just before it and read
 just after it: serving over (e) and (f), training over (g2), the harness
 over (h), which must launch the kernel exactly once per train batch, eval
 batch and transcribe call, bf16 serving over (i1)'s batch and request,
-bf16 training over (i2), once per step. Each path must have launched every
+bf16 training over (i2), once per step, mesh serving over one call of each
+mesh Transcriber of (j1), once per shard, and data-parallel training over
+(j2)'s world-size-1 step and eval and the ranks' steps (which print their
+counts), once per rank per microbatch. Each path must have launched every
 kernel it runs. The line before the last holds the
 kernels' JSON record (``launches`` is the sum over the paths,
 ``launches_by_path`` each path's count); the last line is the result
 object.
+
+``python3 chip_smoke.py --train-dp-rank RANK WORLD INIT BACKEND DEVICE OUT``
+is one rank of (j2), started by (j2) itself.
 """
 
 import gc
@@ -107,6 +130,11 @@ H_CLIPS = {"train": 8, "valid": 4, "test": 4}
 H_ASAP = {"train": 4, "test": 4}
 H_BATCH, H_TRANSCRIBE = 4, 2
 H_SAMPLES, H_UPPER, H_LOWER = (160000, 192000), (10, 120), (5, 60)
+# (j): shards and ranks on one card; (j2) world size 1 against the plain
+# step (relative), the ranks against world size 1 (relative: gloo and NCCL
+# sum the gradients in another order than one rank), a rank's time limit.
+J_SHARDS, TOL_DP_WORLD1, TOL_DP_RANKS, DP_TIMEOUT_S = 2, 1e-6, 1e-5, 600
+DP_RANK_SCRIPT = os.path.abspath(__file__)  # (j2)'s ranks run this file
 # H100 SXM data sheet: HBM 3.35 TB/s; dense TF32 tensor cores 494.7 TFLOP/s.
 HBM_BYTES_PER_S, TF32_FLOP_PER_S = 3.35e12, 494.7e12
 
@@ -501,20 +529,20 @@ def phase_train_f64(torch, tmodels, tstep, tlayers):
     check(moved > 1e-6, "(g1) the step changed the model")
 
 
-def full_width_training(tmodels, tstep, tvqt):
-    """(g2)'s and (i2)'s set-up: the full-width model from seed 0 on the
-    card, a snapshot of its state, its optimizer and the options of a
-    train step from audio with guided attention."""
+def full_width_training(tmodels, tstep, tvqt, device="cuda"):
+    """(g2)'s, (i2)'s and (j2)'s set-up: the full-width model from seed 0
+    on the card, a snapshot of its state, its optimizer and the options of
+    a train step from audio with guided attention."""
     cfg = tmodels.ModelConfig()
     model = tmodels.ScoreTranscription(cfg)
     model.load_state_dict(tmodels.init_state_dict(cfg, seed=0), strict=True)
-    model.to("cuda")
+    model.to(device)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     optimizer = tstep.make_optimizer(model.parameters())
     opts = dict(from_audio=True, vqt_cfg=tvqt.VQTConfig(),
                 max_frame_num=1201, ga_weight=1.0, ga_sigma=0.15,
                 ga_dur_frac=tstep.duration_fraction_table(cfg.vocab_size),
-                device="cuda")
+                device=device)
     return cfg, model, before, optimizer, opts
 
 
@@ -524,6 +552,14 @@ def train_batch(cfg, i):
     from piano_a2s_tpu_torch.train.synthetic import audio_batch
     return audio_batch(cfg, TRAIN_CLIPS, CLIP_SAMPLES, seed=200 + i,
                        targets_seed=300 + i)
+
+
+def dp_batch(cfg, i):
+    """(j2)'s i-th batch: (g2)'s with the row weights the Trainer gives
+    every batch (all 1 here), so that one rank's BatchNorm takes the same
+    weighted sums as the data-parallel one."""
+    return dict(train_batch(cfg, i),
+                sample_weight=np.ones(TRAIN_CLIPS, np.float32))
 
 
 def phase_train_full(torch, tmodels, tstep, tvqt, launches_of):
@@ -618,6 +654,297 @@ def phase_train_bf16(torch, tmodels, tstep, tvqt, launches_of, f32_peak):
           "(i2) Adadelta state float32")
     check(peak < f32_peak, "(i2) bf16 peak below (g2)'s float32 peak")
     return seconds, peak
+
+
+def phase_serve_mesh(torch, Transcriber, state_dict, cfg, clips, e_results,
+                     kernel):
+    """(j1) Multi-device serving: the mesh on every visible card against
+    (e), two shards on cuda:0 against the plain Transcriber shard by
+    shard, clips/s in turns, with the two shards also run in host threads
+    (a CUDA stream each), the design the mesh's loop replaced; then the
+    path, with the kernel's launch count zeroed first: one call of each
+    mesh Transcriber. Returns the path's launches."""
+    plain = Transcriber(state_dict, cfg, device="cuda")
+    every = Transcriber(state_dict, cfg, use_mesh=True)
+    pair = Transcriber(state_dict, cfg, use_mesh=True,
+                       devices=["cuda:0"] * J_SHARDS)
+    check(every.transcribe_batch(clips) == e_results,
+          "(j1) the mesh on every card gives (e)'s results")
+    half = N_CLIPS // J_SHARDS
+    alone = []
+    for i in range(J_SHARDS):
+        alone += plain.transcribe_batch(clips[i * half:(i + 1) * half])
+    check(pair.transcribe_batch(clips) == alone,
+          f"(j1) each of {J_SHARDS} shards on cuda:0 equals it through the "
+          "plain Transcriber")
+    streams = [torch.cuda.Stream() for _ in range(J_SHARDS)]
+
+    def threaded():
+        """The pair's shards at once, each in a host thread and stream."""
+        parts = np.split(pair.prepare_batch(clips)[0], J_SHARDS)
+        out = [None] * J_SHARDS
+
+        def run(i):
+            with torch.cuda.stream(streams[i]):
+                out[i] = pair._to_host(pair._infer_audio(parts[i], i))
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(J_SHARDS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        check(all(o is not None for o in out), "(j1) threaded shards ran")
+
+    calls = {"plain": lambda: plain.transcribe_batch(clips),
+             "every": lambda: every.transcribe_batch(clips),
+             "pair": lambda: pair.transcribe_batch(clips),
+             "threads": threaded}
+    turns = {k: [] for k in calls}
+    for name in ("plain", "every", "pair", "threads", "threads", "pair",
+                 "every", "plain"):
+        t0 = time.monotonic()
+        calls[name]()
+        turns[name].append(time.monotonic() - t0)
+    rate = {k: N_CLIPS / float(np.median(v)) for k, v in turns.items()}
+    print(f"(j1) {N_CLIPS} x 12 s clips in turns: plain Transcriber, mesh on "
+          f"every card ({len(every.devices)}), {J_SHARDS} shards on cuda:0 "
+          f"(the mesh's loop), the {J_SHARDS} shards in host threads, and "
+          f"back: " + ", ".join(
+              f"{k} {[round(t, 3) for t in v]} s ({rate[k]:.2f} clips/s)"
+              for k, v in turns.items())
+          + f"; {J_SHARDS} shards / plain {rate['pair'] / rate['plain']:.3f}"
+          f", threads / {J_SHARDS} shards "
+          f"{rate['threads'] / rate['pair']:.3f}")
+    del plain
+    kernel.launches = 0
+    check_results(every.transcribe_batch(clips), cfg, "(j1) every card")
+    check_results(pair.transcribe_batch(clips), cfg, "(j1) two shards")
+    expected = len(every.devices) + J_SHARDS
+    print(f"(j1) vqt kernel launches over one call of each mesh: "
+          f"{kernel.launches} (expected {expected}, one per shard)")
+    check(kernel.launches == expected, "(j1) one vqt launch per shard")
+    return kernel.launches
+
+
+def state_diff(torch, got, ref, before):
+    """How far state dict ``got`` is from ``ref`` (both after one step from
+    ``before``), over every floating tensor, in float64 on the CPU: "rel"
+    is |got - ref| / |ref| (L2 over all tensors), "update" |got - ref| /
+    |ref - before| (the share of the step's change that differs), "max"
+    the largest element difference, "equal" the bit-equal tensors."""
+    d2 = r2 = u2 = worst = 0.0
+    equal = 0
+    for k, r in ref.items():
+        g, r = got[k].cpu(), r.cpu()
+        equal += int(torch.equal(g, r))
+        if r.is_floating_point():
+            diff = g.double() - r.double()
+            d2 += float((diff ** 2).sum())
+            r2 += float((r.double() ** 2).sum())
+            u2 += float(((r.double() - before[k].cpu().double()) ** 2).sum())
+            worst = max(worst, float(diff.abs().max()))
+    return {"rel": (d2 / r2) ** 0.5, "update": (d2 / max(u2, 1e-300)) ** 0.5,
+            "max": worst, "equal": f"{equal}/{len(ref)}"}
+
+
+def fmt_diff(d):
+    return (f"{d['rel']:.3e} relative, {d['update']:.3e} of the update, "
+            f"max |difference| {d['max']:.3e}, {d['equal']} tensors "
+            f"bit-equal")
+
+
+def train_dp_rank(argv):
+    """One rank of (j2): join the group, one data-parallel step with
+    accum_steps=2 on (g2)'s first batch (the global batch), save the loss
+    and the model state to OUT/rank<RANK>.pt and print a result line with
+    the seconds, the peak memory and the kernel's launches."""
+    import torch
+
+    import piano_a2s_tpu_torch.models as tmodels
+    import piano_a2s_tpu_torch.train.step as tstep
+    from piano_a2s_tpu_torch import parallel
+    from piano_a2s_tpu_torch.ops import vqt as tvqt
+    from piano_a2s_tpu_torch.ops.vqt_cuda import vqt_magnitude_cuda
+
+    rank, world, init, backend, device, out = argv
+    rank, world = int(rank), int(world)
+    dev = parallel.distributed_init(init_method=f"file://{init}", rank=rank,
+                                    world_size=world, device=device,
+                                    backend=backend, timeout_s=DP_TIMEOUT_S)
+    cfg, model, _, optimizer, opts = full_width_training(
+        tmodels, tstep, tvqt, dev)
+    t_dp, _ = tstep.make_train_steps(optimizer, accum_steps=2,
+                                     group=torch.distributed.group.WORLD,
+                                     **opts)
+    torch.cuda.reset_peak_memory_stats(dev)
+    vqt_magnitude_cuda.launches = 0
+    t0 = time.monotonic()
+    res = t_dp(model, dp_batch(cfg, 0),
+               torch.Generator(dev).manual_seed(0), 0.7)
+    torch.cuda.synchronize(dev)
+    seconds = time.monotonic() - t0
+    torch.save({"loss": float(res.loss),
+                "state": {k: v.cpu() for k, v in model.state_dict().items()}},
+               os.path.join(out, f"rank{rank}.pt"))
+    print("DP_RANK_RESULT " + json.dumps({
+        "rank": rank, "device": str(dev), "seconds": seconds,
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "launches": vqt_magnitude_cuda.launches, "loss": float(res.loss)}),
+        flush=True)
+    parallel.shutdown()
+    return 0
+
+
+def run_dp_ranks(torch, backend, devices, ref_state, ref_loss, before):
+    """(j2) ``len(devices)`` ranks of train_dp_rank as subprocesses over
+    ``backend``; each must exit 0, equal ``ref_*`` (world size 1) within
+    TOL_DP_RANKS and equal the others. Returns the ranks' result lines."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        init = os.path.join(tmp, "init")
+        world = len(devices)
+        procs = [subprocess.Popen(
+            [sys.executable, DP_RANK_SCRIPT, "--train-dp-rank",
+             str(r), str(world), init, backend, devices[r], tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                print(text[-4000:])
+            check(p.returncode == 0, f"(j2) {backend} rank {r} exit code")
+        results = [json.loads(line.split(" ", 1)[1]) for text in outs
+                   for line in text.splitlines()
+                   if line.startswith("DP_RANK_RESULT ")]
+        check(len(results) == world, f"(j2) {backend}: a result per rank")
+        saved = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=True) for r in range(world)]
+    for r, (res, sv) in enumerate(zip(results, saved)):
+        d = state_diff(torch, sv["state"], ref_state, before)
+        loss_err = abs(sv["loss"] - ref_loss) / abs(ref_loss)
+        print(f"(j2) {backend} rank {r} on {res['device']}: "
+              f"{res['seconds']:.3f} s a step, peak {res['peak_gib']:.2f} "
+              f"GiB, vqt launches {res['launches']}; loss {sv['loss']:.6f}; "
+              f"against world size 1: loss {loss_err:.3e} relative, "
+              f"parameters and BN buffers {fmt_diff(d)} (tolerance "
+              f"{TOL_DP_RANKS} relative)")
+        check(loss_err < TOL_DP_RANKS and d["rel"] < TOL_DP_RANKS,
+              f"(j2) {backend} rank {r} equals world size 1")
+        check(res["launches"] == 2, f"(j2) {backend} rank {r}: one vqt "
+              "launch per microbatch")
+    for r in range(1, world):
+        check(saved[r]["loss"] == saved[0]["loss"] and all(
+            torch.equal(saved[r]["state"][k], v)
+            for k, v in saved[0]["state"].items()),
+            f"(j2) {backend} ranks 0 and {r} identical")
+    return results
+
+
+def phase_train_dp(torch, tmodels, tstep, tvqt, kernel):
+    """(j2) Data-parallel training at full width: the plain step twice
+    (the card's own spread: atomics in the backward sum in another order
+    each run) and once without row weights, then world size 1 over NCCL
+    (eval, the step, the step without row weights), then the ranks.
+    Returns the path's launches: world size 1's and the ranks'."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from piano_a2s_tpu_torch import parallel
+
+    cfg, model, before, _, opts = full_width_training(tmodels, tstep, tvqt)
+    batch, eval_batch = dp_batch(cfg, 0), dp_batch(cfg, 1)
+    unweighted = train_batch(cfg, 0)  # the same rows without sample weights
+
+    def fresh_steps(group=None):
+        model.load_state_dict(before)
+        return tstep.make_train_steps(tstep.make_optimizer(
+            model.parameters()), accum_steps=2, group=group, **opts)
+
+    def timed_step(t_step, batch=batch):
+        t0 = time.monotonic()
+        out = t_step(model, batch, torch.Generator("cuda").manual_seed(0),
+                     0.7)
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0, {
+            k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    plain = []
+    for _ in range(2):
+        t_plain, e_plain = fresh_steps()
+        plain.append(timed_step(t_plain))
+    ref_u, _, ref_u_state = timed_step(fresh_steps()[0], unweighted)
+    model.load_state_dict(before)
+    _, ref_preds = e_plain(model, eval_batch)  # seed 0's weights, as e_dp's
+    (ref, plain_s, ref_state), (again, again_s, again_state) = plain
+    ref_loss = float(ref.loss)
+    spread = state_diff(torch, again_state, ref_state, before)
+    print(f"(j2) the plain train_step_accum twice: {plain_s:.3f} and "
+          f"{again_s:.3f} s; losses {ref_loss:.6f} and "
+          f"{float(again.loss):.6f}; the second against the first: "
+          f"{fmt_diff(spread)}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.distributed_init(init_method=f"file://{tmp}/init", rank=0,
+                                  world_size=1, device="cuda:0")
+        try:
+            t_dp, e_dp = fresh_steps(dist.group.WORLD)
+            torch.cuda.reset_peak_memory_stats()
+            kernel.launches = 0
+            _, preds = e_dp(model, eval_batch)
+            got, dp_s, dp_state = timed_step(t_dp)
+            peak = torch.cuda.max_memory_allocated()
+            got_u, _, dp_u_state = timed_step(
+                fresh_steps(dist.group.WORLD)[0], unweighted)
+            launches = kernel.launches
+        finally:
+            parallel.shutdown()
+    d = state_diff(torch, dp_state, ref_state, before)
+    loss_err = abs(float(got.loss) - ref_loss) / abs(ref_loss)
+    print(f"(j2) world size 1 (NCCL) against the first plain step: "
+          f"{dp_s:.3f} s a step, peak {peak / 2**30:.2f} GiB; loss "
+          f"{float(got.loss):.6f} ({loss_err:.3e} relative); parameters and "
+          f"BN buffers {fmt_diff(d)} (tolerance {TOL_DP_WORLD1} relative); "
+          f"vqt launches {launches}")
+    check(loss_err < TOL_DP_WORLD1 and d["rel"] < TOL_DP_WORLD1,
+          "(j2) world size 1 equals the plain step")
+    # Without row weights one rank's BatchNorm takes torch's mean and var,
+    # the data-parallel one the same sums as with weights of 1.
+    d_u = state_diff(torch, dp_u_state, ref_u_state, before)
+    loss_err_u = abs(float(got_u.loss) - float(ref_u.loss)) / abs(
+        float(ref_u.loss))
+    print(f"(j2) without row weights, world size 1 against the plain step: "
+          f"loss {float(got_u.loss):.6f} ({loss_err_u:.3e} relative); "
+          f"parameters and BN buffers {fmt_diff(d_u)} (tolerance "
+          f"{TOL_DP_WORLD1} relative)")
+    check(loss_err_u < TOL_DP_WORLD1 and d_u["rel"] < TOL_DP_WORLD1,
+          "(j2) world size 1 equals the plain step without row weights")
+    check(all(torch.equal(preds[k], v) for k, v in ref_preds.items()),
+          "(j2) the data-parallel eval step's predictions equal the plain")
+    check(launches == 5, "(j2) one vqt launch per microbatch and eval batch")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = [("gloo", ["cuda:0"] * 2)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", ["cuda:0", "cuda:1"]))
+    for backend, devices in runs:
+        t0 = time.monotonic()
+        results = run_dp_ranks(torch, backend, devices, dp_state,
+                               float(got.loss), before)
+        launches += sum(r["launches"] for r in results)
+        print(f"(j2) {len(devices)} ranks over {backend} on {devices}: "
+              f"{time.monotonic() - t0:.1f} s with start-up")
+    return launches
 
 
 class Spy:
@@ -956,6 +1283,18 @@ def main():
           f"(i) took {time.monotonic() - t_i:.1f} s")
     check(launches["train_bf16"] == BF16_TRAIN_STEPS,
           "the bf16 training path went through the vqt kernel")
+
+    # (j) the multi-device paths, each zeroing the counts just before its
+    # path: mesh serving (j1), data-parallel training (j2).
+    t_j = time.monotonic()
+    launches["serve_mesh"] = phase_serve_mesh(
+        torch, Transcriber, state_dict, cfg, clips, results,
+        vqt_magnitude_cuda)
+    gc.collect()
+    launches["train_dp"] = phase_train_dp(torch, tmodels, tstep, tvqt,
+                                          vqt_magnitude_cuda)
+    print(f"(j2) vqt kernel launches over (j2): {launches['train_dp']}; "
+          f"(j) took {time.monotonic() - t_j:.1f} s")
     check("jax" not in sys.modules, "no jax imported")
     check(not any(m == "piano_a2s_tpu" or m.startswith("piano_a2s_tpu.")
                   for m in sys.modules), "nothing of the JAX package imported")
@@ -979,4 +1318,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-dp-rank"]:
+        sys.exit(train_dp_rank(sys.argv[2:]))
     sys.exit(main())

@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..parallel import local_rows
 from ..symbolic.vocab import LabelsMultiple
 
 _METADATA_DIR = os.path.join(os.path.dirname(__file__), "metadata")
@@ -295,21 +296,23 @@ class DataLoader:
     counts the real rows), with background-thread prefetch so disk IO
     overlaps device compute.
 
-    Multi-host per-host sharded loading (shard=(process_index,
-    process_count)): every host draws the SAME global batch plan (same
+    Per-host sharded loading for data parallelism (shard=(rank, world)):
+    every host draws the SAME global batch plan (same
     seed, same dataset listing order, same sampling-RNG stream via
     dataset.locate) and loads every row's TARGET (small pickles — keeps
     length bucketing and the cross-host batch contract a pure function of
     global state), but loads SPECTROGRAMS (the heavy IO) only for its own
-    contiguous row range. The batch then carries a "local_rows" marker and
-    a (batch/world)-row spectrogram array. The port's Trainer has one
-    process and does not take such batches yet (data parallel is a later
-    slice, ROADMAP Queue 1).
+    rows. The batch then carries "local_rows", the index array of those
+    rows, and a (batch/world)-row feature array. The rows are
+    ``parallel.local_rows(rank, world, batch_size, accum_steps)``: with
+    gradient accumulation each rank owns its slice of every microbatch;
+    with accum_steps=1 the contiguous range the JAX package's loader reads.
+    The data-parallel Trainer (use_mesh=True) checks them against its own.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, pad_final_batch: bool = True,
-                 prefetch: int = 2, shard=None):
+                 prefetch: int = 2, shard=None, accum_steps: int = 1):
         self.dataset = dataset
         # Optional per-batch hook, applied where batches are BUILT — i.e.
         # inside the prefetch producer thread — so host-side staging work
@@ -326,10 +329,11 @@ class DataLoader:
             if not (0 <= rank < world):
                 raise ValueError(f"bad shard {shard}")
             if world > 1:
-                if batch_size % world:
+                if batch_size % (world * accum_steps):
                     raise ValueError(
-                        f"batch_size={batch_size} must divide the "
-                        f"{world}-process world for per-host loading")
+                        f"the {world}-process world times accum_steps="
+                        f"{accum_steps} must divide batch_size={batch_size} "
+                        f"for per-host loading")
                 if not pad_final_batch:
                     raise ValueError("per-host sharded loading requires "
                                      "pad_final_batch (static row ranges)")
@@ -340,6 +344,7 @@ class DataLoader:
             else:
                 shard = None  # single process: plain loading
         self.shard = shard
+        self.accum_steps = accum_steps
 
     def __len__(self) -> int:
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
@@ -371,9 +376,8 @@ class DataLoader:
             return s_cache[loc]
 
         targets = [load_t(loc) for loc in locators]
-        rows = self.batch_size // world
-        lo = rank * rows
-        specs = [load_s(loc) for loc in locators[lo: lo + rows]]
+        rows = local_rows(rank, world, self.batch_size, self.accum_steps)
+        specs = [load_s(locators[i]) for i in rows]
         batch = {k: np.stack([t[k] for t in targets])
                  for k in ("time_sig", "key", "upper", "upper_lengths",
                            "lower", "lower_lengths")}
@@ -386,7 +390,7 @@ class DataLoader:
         batch["names"] = [loc[1] for loc in locators]
         batch["versions"] = [loc[2] for loc in locators]
         batch["n_real"] = n_real
-        batch["local_rows"] = (lo, lo + rows)
+        batch["local_rows"] = rows
         return batch
 
     def _batches(self):

@@ -5,6 +5,13 @@ structure ``[[key, time_sig, lower_tokens, upper_tokens], ...]`` (one entry
 per bar) ready for Kern/MusicXML/MIDI export. The audio goes to the device
 as it is (float32, or int16 PCM converted there), the VQT frontend and the
 model run on the device, and uint8 tokens and int16 lengths come back.
+
+Multi-device serving (``Transcriber(use_mesh=True)``, the JAX package's
+batch-sharded mesh): one model copy and one VQT filter pair per device,
+the batch cut into contiguous equal shards, each shard's whole forward on
+its own device, one shard after another. The shards share nothing and stop
+their decodes each on its own, as the JAX package's shard_map does; on a
+model that is sure of its EOS the results equal one device's.
 """
 
 from __future__ import annotations
@@ -40,25 +47,53 @@ class Transcriber:
     ConvStack and the note decoders' loop in bfloat16, the softmaxes and
     the emitted log-probs in float32 (ScoreTranscription.forward). The
     weights stay float32; the bf16 copies are made per call.
+
+    ``use_mesh=True`` shards every batch over ``devices`` (default: every
+    visible CUDA device; without one it raises, and the CPU is used only
+    as ``devices=["cpu"] * k``). A device may repeat: ``["cuda:0",
+    "cuda:0"]`` runs two shards on one card. Batches are padded to a
+    multiple of the device count.
     """
 
     def __init__(self, state_dict, cfg: ModelConfig = ModelConfig(),
                  vqt_cfg: VQTConfig = VQTConfig(),
                  max_frame_num: int = 1201, device="cuda",
-                 decode_dtype: Optional[torch.dtype] = None):
+                 decode_dtype: Optional[torch.dtype] = None,
+                 use_mesh: bool = False, devices=None):
         if decode_dtype not in (None, torch.bfloat16):
             raise ValueError(f"decode_dtype={decode_dtype}: supported "
                              "values are None (float32) and torch.bfloat16")
-        self.device = resolve_device(device)
+        if use_mesh:
+            if devices is None:
+                if not torch.cuda.is_available():
+                    raise RuntimeError(
+                        "use_mesh=True shards over the visible CUDA devices "
+                        "and there is none (pass devices=['cpu'] * k to "
+                        "shard on the CPU)")
+                devices = [f"cuda:{i}"
+                           for i in range(torch.cuda.device_count())]
+            devices = [resolve_device(d) for d in devices]
+        elif devices is not None:
+            raise ValueError("devices= shards a batch: it needs "
+                             "use_mesh=True")
+        else:
+            devices = [resolve_device(device)]
+        self.mesh = use_mesh
+        self.devices = devices
         use_full_float32()
         self.decode_dtype = decode_dtype
         self.cfg = cfg
         self.vqt_cfg = vqt_cfg
         self.max_frame_num = max_frame_num
-        self.model = ScoreTranscription(cfg)
-        self.model.load_state_dict(state_dict, strict=True)
-        self.model.to(device=self.device, dtype=torch.float32).eval()
-        self.kernels = filters(vqt_cfg, self.device)
+        # One model copy and filter pair per shard.
+        self._shards = []
+        for dev in devices:
+            model = ScoreTranscription(cfg)
+            model.load_state_dict(state_dict, strict=True)
+            model.to(device=dev, dtype=torch.float32).eval()
+            self._shards.append((model, filters(vqt_cfg, dev)))
+        self.device = devices[0]
+        self.model, self.kernels = self._shards[0]
         self.time_sig_list = load_time_signatures()
 
     @property
@@ -71,30 +106,51 @@ class Transcriber:
         return trim_pad_audio(audio, self.max_samples)
 
     @torch.inference_mode()
-    def _infer_audio(self, audio: np.ndarray):
+    def _infer_audio(self, audio: np.ndarray, shard: int = 0):
         """(B, max_samples) float32 or int16 -> device tensors (time_sig,
-        key, upper tokens, lower tokens as uint8; lengths as int16)."""
-        x = torch.from_numpy(np.ascontiguousarray(audio)).to(self.device)
+        key, upper tokens, lower tokens as uint8; lengths as int16), on
+        ``shard``'s device and model."""
+        model, kernels = self._shards[shard]
+        x = torch.from_numpy(np.ascontiguousarray(audio)).to(
+            self.devices[shard])
         if x.dtype == torch.int16:
             x = x.to(torch.float32) / PCM16_SCALE
-        spec = get_vqt(x, self.kernels, self.vqt_cfg)
+        spec = get_vqt(x, kernels, self.vqt_cfg)
         t = spec.shape[1]
         if t >= self.max_frame_num:
             spec = spec[:, : self.max_frame_num]
         else:
             spec = torch.nn.functional.pad(
                 spec, (0, 0, 0, self.max_frame_num - t))
-        ts, key, _, _, aux = self.model(spec[:, None],
-                                        decode_dtype=self.decode_dtype)
+        ts, key, _, _, aux = model(spec[:, None],
+                                   decode_dtype=self.decode_dtype)
         return (ts.argmax(-1).to(torch.uint8), key.argmax(-1).to(torch.uint8),
                 aux["upper_tokens"].to(torch.uint8),
                 aux["lower_tokens"].to(torch.uint8),
                 aux["upper_lengths"].to(torch.int16),
                 aux["lower_lengths"].to(torch.int16))
 
+    def _infer_sharded(self, audio: np.ndarray) -> tuple:
+        """The mesh's forward: contiguous equal shards of the batch, each
+        through ``_infer_audio`` on its device, one after another; the host
+        arrays joined in order. The decode loop waits on the host every
+        step, so the shards do not overlap; host threads, one a shard, were
+        slower still (PERF.md, mesh serving)."""
+        parts = np.split(audio, len(self._shards))
+        results = [self._to_host(self._infer_audio(p, i))
+                   for i, p in enumerate(parts)]
+        return tuple(np.concatenate(a) for a in zip(*results))
+
+    def _launch(self, audio: np.ndarray) -> tuple:
+        """One batch's outputs: device tensors on one device, host arrays
+        from the mesh."""
+        return (self._infer_sharded(audio) if self.mesh
+                else self._infer_audio(audio))
+
     @staticmethod
     def _to_host(arrays) -> tuple:
-        return tuple(a.cpu().numpy() for a in arrays)
+        return tuple(a if isinstance(a, np.ndarray) else a.cpu().numpy()
+                     for a in arrays)
 
     # -- inference ----------------------------------------------------------
 
@@ -115,11 +171,15 @@ class Transcriber:
 
     def prepare_batch(self, audio_batch: Sequence[np.ndarray]):
         """Host half of transcribe_batch: trim/pad clips, stack, and pad the
-        batch to the next power of two by repeating the last clip. Returns
-        (audio, n); touches no device state."""
+        batch to the next power of two (on the mesh, then up to a multiple
+        of the device count) by repeating the last clip. Returns (audio,
+        n); touches no device state."""
         audio = stack_audio_batch([self._prep_audio(a) for a in audio_batch])
         n = len(audio_batch)
         padded = max(1, 1 << (n - 1).bit_length())
+        if self.mesh:
+            k = len(self.devices)
+            padded = -(-max(padded, k) // k) * k
         if padded != n:
             audio = np.concatenate(
                 [audio, np.repeat(audio[-1:], padded - n, axis=0)])
@@ -130,7 +190,7 @@ class Transcriber:
                             ) -> List[List[list]]:
         """Device half of transcribe_batch, then token decoding."""
         t1 = time.monotonic()
-        arrays = self._to_host(self._infer_audio(audio))
+        arrays = self._to_host(self._launch(audio))
         t2 = time.monotonic()
         out = self._postprocess(arrays, n)
         if timings is not None:
@@ -168,9 +228,14 @@ class Transcriber:
         results are copied to the host and decoded. The decode loop reads
         its stop condition on the host every step, so batches do not
         overlap on the device yet; the results equal the blocking calls'.
+        On the mesh the device count must divide ``batch_size`` (checked
+        here, at the call).
         """
         if batch_size <= 0 or depth < 0:
             raise ValueError("batch_size must be >0 and depth >=0")
+        if self.mesh and batch_size % len(self.devices):
+            raise ValueError(f"batch_size={batch_size} must divide the "
+                             f"{len(self.devices)}-device mesh")
         return self._stream(clips, batch_size, depth)
 
     def _stream(self, clips, batch_size: int,
@@ -189,7 +254,7 @@ class Transcriber:
                 yield buf + [buf[-1]] * (batch_size - n), n
 
         for buf, n in batches():
-            inflight.append((n, self._infer_audio(stack_audio_batch(buf))))
+            inflight.append((n, self._launch(stack_audio_batch(buf))))
             if len(inflight) > depth:
                 n0, arrs = inflight.popleft()
                 yield from self._postprocess(self._to_host(arrs), n0)

@@ -18,6 +18,16 @@ Parameter names are those of the torch reference state dict (the keys
 JAX checkpoint or an upstream checkpoint loads strictly. The BatchNorm
 state is the modules' running buffers, which a training forward writes in
 place.
+
+Data parallelism (``group``, a torch.distributed process group whose ranks
+each hold their rows of the batch): the training forward takes the global
+batch's BatchNorm statistics, draws its dropout masks at the global
+batch's shape and keeps its rows, and takes the decode's batch-coupled
+stop step over every rank's targets; the greedy decode stops when every
+rank's items have stopped. So N ranks compute what one rank computes on
+the joined rows, as the JAX package's one program over a device mesh
+does. Serving shards (infer.Transcriber(use_mesh=True)) pass no group:
+each stops on its own.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.profiler import record_function
@@ -41,6 +52,19 @@ CONV_CHANNELS = (20, 20, 40, 40)
 def _cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
     """x in ``dtype``, or as it is for None (full precision)."""
     return x if dtype is None else x.to(dtype)
+
+
+def _dropout(x: torch.Tensor, rate: float, train: bool,
+             generator: Optional[torch.Generator], group,
+             axis: int = 0) -> torch.Tensor:
+    """L.dropout of x, whose batch axis is ``axis``; under ``group`` x is
+    this rank's rows and the mask is cut from the global batch's."""
+    if group is None:
+        return L.dropout(x, rate, train, generator)
+    b = x.shape[axis]
+    return L.dropout(x, rate, train, generator,
+                     rows=(axis, dist.get_rank(group) * b,
+                           dist.get_world_size(group) * b))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,8 +134,8 @@ class ConvStack(nn.Module):
     def forward_train(self, x: torch.Tensor,
                       sample_weight: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      compute_dtype: Optional[torch.dtype] = None
-                      ) -> torch.Tensor:
+                      compute_dtype: Optional[torch.dtype] = None,
+                      group=None) -> torch.Tensor:
         """Train: x (B, C_in, T, F) -> (B, T, conv_feature_size).
 
         Conv, BatchNorm on the batch statistics (weighted by
@@ -126,12 +150,17 @@ class ConvStack(nn.Module):
         in float32 and returns the compute dtype
         (``L.batch_norm_relu_train``, which saves no float32 activation for
         the backward). The result is in the compute dtype.
+
+        ``group`` (data parallelism): x is this rank's rows; all five
+        BatchNorms take the global batch's statistics and the dropout mask
+        is this rank's rows of the global one.
         """
         def bn_relu(y, bn, axes):
             if compute_dtype is None:
                 return F.relu(L.batch_norm_train(y, bn, axes=axes,
-                                                 weight=sample_weight))
-            return L.batch_norm_relu_train(y, bn, axes, sample_weight)
+                                                 weight=sample_weight,
+                                                 group=group))
+            return L.batch_norm_relu_train(y, bn, axes, sample_weight, group)
 
         y = _cast(x, compute_dtype)
         for i in range(1, 5):
@@ -141,7 +170,7 @@ class ConvStack(nn.Module):
         y = y.permute(0, 2, 1, 3).reshape(bsz, t, c * f)
         y = L.linear(y, self.out.weight.to(y.dtype), self.out.bias)
         y = bn_relu(y, self.out_bn, (0, 1))
-        return L.dropout(y, 0.2, True, generator)
+        return _dropout(y, 0.2, True, generator, group)
 
 
 class Encoder(nn.Module):
@@ -265,13 +294,16 @@ def _fast_step(p: DualDecodeParams, enc: torch.Tensor,
 
 def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
                             enc: torch.Tensor, enc_proj2: torch.Tensor,
-                            h0: torch.Tensor):
+                            h0: torch.Tensor, group=None):
     """Greedy decode of both staves with the reference's early exit.
 
     Staff s steps while t < its cap and not every batch item has emitted
     EOS; its buffers stay zero after it stops. An item's length is its
     last EOS step + 1 (the cap if it never emitted EOS). The loop reads
-    the stop condition on the host every step.
+    the stop condition on the host every step. Under ``group`` (eval under
+    data parallelism) "every batch item" is every rank's: the count of
+    items still decoding is all-reduced each step, so all ranks stop at
+    the same step, as the JAX package's one loop over the global batch.
 
     Returns per staff (logp (B, T_s, V), tokens (B, T_s), lengths (B,)).
     """
@@ -288,7 +320,12 @@ def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
                                    device=dev))
     masks = {}
     for t in range(T):
-        all_done = done.all(dim=1).tolist()
+        if group is None:
+            all_done = done.all(dim=1).tolist()
+        else:
+            left = (~done).sum(dim=1)
+            dist.all_reduce(left, group=group)
+            all_done = (left == 0).tolist()
         act = tuple(t < caps[s] and not all_done[s] for s in range(2))
         if not any(act):
             break
@@ -314,15 +351,26 @@ def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
 # Teacher-forced note decoder (training)
 # ---------------------------------------------------------------------------
 
-def _note_lengths(signal: torch.Tensor, max_steps: int) -> torch.Tensor:
+def _stop_step(signal: torch.Tensor) -> torch.Tensor:
+    """The reference's early-exit loop's stop step from EOS signals
+    (..., B, T) bool: T_stop = max_i(first EOS of item i) + 1, at most T.
+    Shape (...)."""
+    T = signal.shape[-1]
+    first = torch.where(signal.any(dim=-1), signal.int().argmax(dim=-1), T)
+    return torch.clamp(first.amax(dim=-1) + 1, max=T)
+
+
+def _note_lengths(signal: torch.Tensor, max_steps: int,
+                  t_stop: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-item lengths of the reference's early-exit loop, from a full
-    EOS signal (B, T) bool: the loop stops at T_stop = max_i(first EOS of
-    item i) + 1, and an item's length is its last EOS step before T_stop,
-    plus one, or ``max_steps`` if it has none. 1 for an EOS at step 0."""
+    EOS signal (B, T) bool: the loop stops at T_stop (``_stop_step``, or
+    ``t_stop``, the global batch's under data parallelism), and an item's
+    length is its last EOS step before T_stop, plus one, or ``max_steps``
+    if it has none. 1 for an EOS at step 0."""
     T = signal.shape[1]
     steps = torch.arange(T, device=signal.device)
-    first = torch.where(signal.any(dim=1), signal.int().argmax(dim=1), T)
-    t_stop = torch.clamp(first.max() + 1, max=T)
+    if t_stop is None:
+        t_stop = _stop_step(signal)
     valid = signal & (steps[None, :] < t_stop)
     last = T - 1 - valid.flip(1).int().argmax(dim=1)
     return torch.where(valid.any(dim=1), last + 1, max_steps)
@@ -451,7 +499,7 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
                            ga_sigma: float = 0.15,
                            ga_dur_frac: Optional[torch.Tensor] = None,
                            ga_content: Optional[torch.Tensor] = None,
-                           ga_map: str = "auto"):
+                           ga_map: str = "auto", group=None):
     """Teacher-forced decode of one bar, both staves in one loop of
     max(T_up, T_low) steps, each staff's cap T_s the width of its ground
     truth ``gt_up`` (B, T_up) and ``gt_low`` (B, T_low); the narrower
@@ -478,6 +526,8 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
     ``ga_sigma`` around it, summed over non-pad steps. The guide takes no
     gradient and is computed for all steps at once. Returns ((up_logp,
     up_tok), (low_logp, low_tok), ga_num (2, B) float32 or None).
+    ``group``: the token dropout masks are this rank's rows of the global
+    batch's (the coins are per step, shared by the batch).
     """
     B, dev = enc.shape[0], enc.device
     t_up, t_low = gt_up.shape[1], gt_low.shape[1]
@@ -488,9 +538,9 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
                                           device=dev))
     drops = None
     if train:
-        drops = L.dropout(torch.ones((T,) + tok2.shape, device=dev,
-                                     dtype=L.float32_or_wider(tok2.dtype)),
-                          0.1, train, generator)
+        drops = _dropout(torch.ones((T,) + tok2.shape, device=dev,
+                                    dtype=L.float32_or_wider(tok2.dtype)),
+                         0.1, train, generator, group, axis=2)
     coins = torch.rand((T, 2), generator=generator, device=dev) < tf_ratio
     guides = None
     if ga_frac is not None:
@@ -599,7 +649,7 @@ class HierarchicalDecoder(nn.Module):
         return _cast(enc, decode_dtype), _cast(enc_proj2, decode_dtype)
 
     def forward(self, enc: torch.Tensor, hidden: torch.Tensor,
-                decode_dtype: Optional[torch.dtype] = None):
+                decode_dtype: Optional[torch.dtype] = None, group=None):
         """Greedy decode of max_bars bars (no ground truth).
 
         Returns (time_sig_logp (B, bars, 7), key_logp (B, bars, 14),
@@ -611,6 +661,8 @@ class HierarchicalDecoder(nn.Module):
         and of the staves' weights in that dtype; their softmaxes and
         log-softmaxes, and the emitted log-probs, stay float32. The bar
         level (attention, GRU, heads, staff summaries) stays float32.
+        ``group``: the note decoders stop on every rank's items
+        (note_decoder_dual_infer).
         """
         cfg = self.cfg
         B, dev = enc.shape[0], enc.device
@@ -631,7 +683,7 @@ class HierarchicalDecoder(nn.Module):
             hidden = bar_summary
             (up_logp, up_tok, up_len), (low_logp, low_tok, low_len) = \
                 note_decoder_dual_infer(dual, cfg, enc_dec, enc_proj2,
-                                        bar_summary.to(enc_dec.dtype))
+                                        bar_summary.to(enc_dec.dtype), group)
             head_in = torch.cat([bar_summary, context], dim=-1)
             ts_logp = torch.log_softmax(self.time_sig_out(head_in), dim=-1)
             key_logp = torch.log_softmax(self.key_out(head_in), dim=-1)
@@ -663,7 +715,8 @@ class HierarchicalDecoder(nn.Module):
                                ga_sigma: float = 0.0, ga_dur_frac=None,
                                ga_content: Optional[torch.Tensor] = None,
                                ga_map: str = "auto",
-                               decode_dtype: Optional[torch.dtype] = None):
+                               decode_dtype: Optional[torch.dtype] = None,
+                               group=None):
         """Decode max_bars bars against ``ground_truth`` = (time_sig
         (B, bars), key (B, bars), upper (B, bars, Tu), upper_len (B, bars),
         lower (B, bars, Tl), lower_len (B, bars)).
@@ -688,6 +741,11 @@ class HierarchicalDecoder(nn.Module):
         cfg.max_length: a batch whose targets end early may be cut to a
         shorter width (length bucketing). The cut-off positions are all
         <pad>, so the loss and its gradients are those of the full width.
+
+        ``group`` (data parallelism, this rank's rows): the stop steps
+        behind the lengths and the length check are the global batch's,
+        from one all-reduce, so every rank raises or none does; dropout
+        masks are this rank's rows of the global ones.
         """
         cfg = self.cfg
         B, dev = enc.shape[0], enc.device
@@ -707,13 +765,25 @@ class HierarchicalDecoder(nn.Module):
             ga_dur_frac = torch.as_tensor(ga_dur_frac, dtype=torch.float32,
                                           device=dev)
 
-        up_len = torch.stack([_note_lengths(up_gt[:, j] == cfg.eos, t_up)
+        up_sig, low_sig = (up_gt.transpose(0, 1) == cfg.eos,
+                           low_gt.transpose(0, 1) == cfg.eos)  # (bars, B, T)
+        stops = torch.stack([_stop_step(up_sig), _stop_step(low_sig)])
+        gt_short = False
+        if group is not None:
+            # The global stop steps, and whether any rank holds a target
+            # length below 1, in one all-reduce (max).
+            short = torch.minimum(up_len_gt.min(), low_len_gt.min()) < 1
+            red = torch.cat([stops.reshape(-1),
+                             short.to(stops.dtype).reshape(1)])
+            dist.all_reduce(red, op=dist.ReduceOp.MAX, group=group)
+            stops, gt_short = red[:-1].reshape(stops.shape), bool(red[-1])
+        up_len = torch.stack([_note_lengths(up_sig[j], t_up, stops[0, j])
                               for j in range(bars)])          # (bars, B)
-        low_len = torch.stack([_note_lengths(low_gt[:, j] == cfg.eos, t_low)
+        low_len = torch.stack([_note_lengths(low_sig[j], t_low, stops[1, j])
                                for j in range(bars)])
         lens_host = torch.stack([up_len, low_len, up_len_gt.T,
                                  low_len_gt.T], dim=1).cpu()  # (bars, 4, B)
-        if bool((lens_host < 1).any()):
+        if gt_short or bool((lens_host < 1).any()):
             raise ValueError("every staff length must be at least 1 (the "
                              "packed staff summaries take no empty "
                              "sequence)")
@@ -726,7 +796,7 @@ class HierarchicalDecoder(nn.Module):
         token = self.sos_token(B, dev)
         outs = []
         for j in range(bars):
-            token = L.dropout(token, 0.1, train, generator)
+            token = _dropout(token, 0.1, train, generator, group)
             context, _ = A.attention_step(self.attn, enc_proj_bar, enc,
                                           hidden)
             bar_summary = G.gru_step(self.gru,
@@ -741,7 +811,7 @@ class HierarchicalDecoder(nn.Module):
                     tf_ratio, train, generator, emit_full=emit_full,
                     ga_frac=(j / bars, 1.0 / bars) if use_ga else None,
                     ga_sigma=ga_sigma, ga_dur_frac=ga_dur_frac,
-                    ga_content=ga_content, ga_map=ga_map)
+                    ga_content=ga_content, ga_map=ga_map, group=group)
             head_in = torch.cat([bar_summary, context], dim=-1)
             ts_logp = torch.log_softmax(self.time_sig_out(head_in), dim=-1)
             key_logp = torch.log_softmax(self.key_out(head_in), dim=-1)
@@ -798,7 +868,7 @@ class ScoreTranscription(nn.Module):
                 ga_map: str = "auto",
                 conv_dtype: Optional[torch.dtype] = None,
                 decode_dtype: Optional[torch.dtype] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, group=None):
         """spectrogram (B, 1, T, F) -> (time_sig_logp, key_logp,
         upper_logp, lower_logp, aux).
 
@@ -818,15 +888,20 @@ class ScoreTranscription(nn.Module):
         ``conv_dtype`` (training only) runs the ConvStack in that dtype
         (``ConvStack.forward_train``'s compute_dtype). The encoder always
         takes float32 (or wider) features.
+
+        ``group`` (data parallelism): the batch is this rank's rows of the
+        global batch, and the batch-coupled parts (BatchNorm statistics,
+        dropout masks, stop steps) are the global batch's; see the module
+        docstring.
         """
         if ground_truth is None:
             if train:
                 raise ValueError("the training forward needs ground_truth")
-            return self._greedy(spectrogram, decode_dtype)
+            return self._greedy(spectrogram, decode_dtype, group)
         with record_function("forward/convstack"):
             if train:
                 feats = self.convstack.forward_train(
-                    spectrogram, sample_weight, generator, conv_dtype)
+                    spectrogram, sample_weight, generator, conv_dtype, group)
             else:
                 feats = self.convstack(_cast(spectrogram, decode_dtype))
         with record_function("forward/encoder"):
@@ -837,10 +912,10 @@ class ScoreTranscription(nn.Module):
                 enc, hidden, ground_truth, tf_ratio, train, generator,
                 emit_full=emit_full, ga_sigma=ga_sigma,
                 ga_dur_frac=ga_dur_frac, ga_content=ga_content,
-                ga_map=ga_map, decode_dtype=decode_dtype)
+                ga_map=ga_map, decode_dtype=decode_dtype, group=group)
 
     @torch.no_grad()
     def _greedy(self, spectrogram: torch.Tensor,
-                decode_dtype: Optional[torch.dtype] = None):
+                decode_dtype: Optional[torch.dtype] = None, group=None):
         enc, hidden = self.encode(_cast(spectrogram, decode_dtype))
-        return self.decoder(enc, hidden, decode_dtype)
+        return self.decoder(enc, hidden, decode_dtype, group)

@@ -7,6 +7,11 @@ Eval-mode BatchNorm is folded into the preceding conv or linear
 (``batch_norm_train``) because ``nn.BatchNorm`` cannot weight the rows of
 its batch statistics. The ``nn.BatchNorm`` modules keep the parameters
 and the running buffers.
+
+Under data parallelism (a ``group`` of ranks, each holding its rows of the
+batch) the training BatchNorm's statistics are those of the global batch,
+as the JAX package's one program computes them: SyncBatchNorm with the
+row weights kept.
 """
 
 from __future__ import annotations
@@ -65,29 +70,53 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def _batch_stats(x: torch.Tensor, axes: Sequence[int],
-                 weight: Optional[torch.Tensor]):
+                 weight: Optional[torch.Tensor], group=None):
     """(mean, biased var, unbiased var, wx, n) of x over ``axes``, as
     ``batch_norm_train`` defines them. ``wx`` is the row weight broadcast
     against x (None without ``weight``); ``n`` the count of contributing
-    elements per channel (a tensor when weighted)."""
-    if weight is not None:
-        w = torch.where(weight.sum() > 0, weight,
-                        torch.ones_like(weight)).to(x.dtype)
-        wx = w.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
-        per_row = math.prod(x.shape[a] for a in axes if a != 0)
-        # n counts the rows that contribute: sum(w) after the fallback.
-        n = w.sum() * per_row
-        mean = (x * wx).sum(dim=tuple(axes)) / n
-        shape_m = [1 if i in axes else x.shape[i] for i in range(x.dim())]
-        var = (wx * (x - mean.reshape(shape_m)) ** 2).sum(
-            dim=tuple(axes)) / n
-        unbiased = var * (n / torch.clamp(n - 1, min=1))
-    else:
-        wx = None
-        mean = x.mean(dim=tuple(axes))
-        var = x.var(dim=tuple(axes), correction=0)
+    elements per channel (a tensor when weighted).
+
+    With ``group`` (data parallelism) the statistics are over the rows of
+    every rank, weighted (a weight of 1 per row when ``weight`` is None):
+    the sums are all-reduced before the mean and before the variance. The
+    all-zero weight fallback is decided on the global sum of the weights,
+    so a rank whose rows are all padding still takes the others' weighted
+    statistics. The all-reduces are differentiable (their backward
+    all-reduces the gradients), so autograd carries each rank's share of
+    the statistics' gradient to the other ranks' rows."""
+    red = tuple(axes)
+    if weight is None and group is None:
+        mean = x.mean(dim=red)
+        var = x.var(dim=red, correction=0)
         n = x.numel() // mean.numel()
-        unbiased = var * (n / max(n - 1, 1))
+        return mean, var, var * (n / max(n - 1, 1)), None, n
+
+    def summed(t):
+        if group is None:
+            return t
+        from torch.distributed.nn.functional import all_reduce
+        return all_reduce(t, group=group)
+
+    ones = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+    w = ones if weight is None else weight.to(x.dtype)
+    row_shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    stat_shape = [x.shape[i] for i in range(x.dim()) if i not in red]
+    per_row = math.prod(x.shape[a] for a in axes if a != 0)
+    # One vector: the weighted and the plain sums per channel, sum(w) and
+    # the row count; the plain ones serve the all-zero weight fallback.
+    sums = summed(torch.cat([
+        (x * w.reshape(row_shape)).sum(dim=red).reshape(-1),
+        x.sum(dim=red).reshape(-1), w.sum()[None], ones.sum()[None]]))
+    k = (sums.numel() - 2) // 2
+    weighted = sums[-2] > 0
+    # n counts the rows that contribute: sum(w) after the fallback.
+    n = torch.where(weighted, sums[-2], sums[-1]) * per_row
+    mean = (torch.where(weighted, sums[:k], sums[k:2 * k]) / n
+            ).reshape(stat_shape)
+    wx = torch.where(weighted, w, ones).reshape(row_shape)
+    shape_m = [1 if i in red else x.shape[i] for i in range(x.dim())]
+    var = summed((wx * (x - mean.reshape(shape_m)) ** 2).sum(dim=red)) / n
+    unbiased = var * (n / torch.clamp(n - 1, min=1))
     return mean, var, unbiased, wx, n
 
 
@@ -106,7 +135,8 @@ def _channel_shape(x: torch.Tensor, axes: Sequence[int]):
 
 def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
                      axes: Sequence[int],
-                     weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     weight: Optional[torch.Tensor] = None,
+                     group=None) -> torch.Tensor:
     """Training-mode BatchNorm of x over ``axes`` (axis 0 among them).
 
     Normalises by the biased batch variance and writes the running
@@ -115,9 +145,11 @@ def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
     batch statistics, so padding duplicates of a last batch do not bias
     them; an all-zero weight (a fully padded microbatch) falls back to
     unweighted statistics rather than 0/0. ``num_batches_tracked`` is not
-    used: the momentum is fixed.
+    used: the momentum is fixed. With ``group`` (data parallelism) the
+    statistics, the fallback and the running update are the global batch's
+    (``_batch_stats``), the same on every rank.
     """
-    mean, var, unbiased, _, _ = _batch_stats(x, axes, weight)
+    mean, var, unbiased, _, _ = _batch_stats(x, axes, weight, group)
     _update_running(bn, mean, unbiased)
     shape = _channel_shape(x, axes)
     inv = torch.rsqrt(var + BN_EPS)
@@ -136,13 +168,18 @@ class _BatchNormReLU(torch.autograd.Function):
     Autograd on the straight-line version would save full-size tensors in
     ``f`` (x - mean twice, the ReLU's output): more than the reduced-
     precision activation it stands for.
+
+    With ``group`` the statistics are the global batch's, and the backward
+    all-reduces its per-channel sums before it forms dx (SyncBatchNorm's
+    backward, with the row weights kept); gamma and beta get this rank's
+    own sums, which the gradient all-reduce adds up.
     """
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, weight, axes):
+    def forward(ctx, x, gamma, beta, weight, axes, group=None):
         fdt = float32_or_wider(x.dtype)
         xf = x.to(fdt, copy=True)
-        mean, var, unbiased, wx, n = _batch_stats(xf, axes, weight)
+        mean, var, unbiased, wx, n = _batch_stats(xf, axes, weight, group)
         shape = _channel_shape(x, axes)
         inv = torch.rsqrt(var + BN_EPS)
         scale = (inv * gamma).reshape(shape)
@@ -150,7 +187,7 @@ class _BatchNormReLU(torch.autograd.Function):
         y = xf.sub_(mean.reshape(shape)).mul_(scale).add_(
             beta.reshape(shape)).relu_().to(x.dtype)
         ctx.save_for_backward(x, y, gamma, mean, inv, wx)
-        ctx.axes, ctx.n = tuple(axes), n
+        ctx.axes, ctx.n, ctx.group = tuple(axes), n, group
         ctx.mark_non_differentiable(mean, unbiased)
         return y, mean, unbiased
 
@@ -165,39 +202,56 @@ class _BatchNormReLU(torch.autograd.Function):
             inv.reshape(shape))
         dbeta = g.sum(dim=axes)
         dgamma = (g * xhat).sum(dim=axes)
+        sum_beta, sum_gamma = dbeta, dgamma
+        if ctx.group is not None:  # the sums over every rank's rows
+            both = torch.cat([dbeta, dgamma])
+            torch.distributed.all_reduce(both, group=ctx.group)
+            sum_beta, sum_gamma = both.split(dbeta.numel())
         # d/dx of gamma * xhat + beta with the (weighted) batch statistics
         # a function of x: inv * gamma * (g - w/n * (dbeta + xhat * dgamma)).
         share = (1.0 / n) if wx is None else wx / n
-        dx = xhat.mul_(dgamma.reshape(shape)).add_(dbeta.reshape(shape))
+        dx = xhat.mul_(sum_gamma.reshape(shape)).add_(sum_beta.reshape(shape))
         dx = g.sub_(dx.mul_(share)).mul_((inv * gamma).reshape(shape))
-        return dx.to(x.dtype), dgamma, dbeta, None, None
+        return dx.to(x.dtype), dgamma, dbeta, None, None, None
 
 
 def batch_norm_relu_train(x: torch.Tensor,
                           bn: nn.modules.batchnorm._BatchNorm,
                           axes: Sequence[int],
-                          weight: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          weight: Optional[torch.Tensor] = None,
+                          group=None) -> torch.Tensor:
     """relu(batch_norm_train(x)) for a reduced-precision x (bfloat16): the
     statistics and the normalisation in at least float32, the result in
     x's dtype. Writes ``bn``'s running statistics as batch_norm_train does.
     Autograd keeps x, the result and per-channel statistics only
-    (``_BatchNormReLU``).
+    (``_BatchNormReLU``). ``group``: see batch_norm_train.
     """
     y, mean, unbiased = _BatchNormReLU.apply(x, bn.weight, bn.bias, weight,
-                                             tuple(axes))
+                                             tuple(axes), group)
     _update_running(bn, mean, unbiased)
     return y
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Inverted dropout: each element is kept with probability 1 - rate
     and scaled by 1 / (1 - rate), the mask drawn from ``generator`` (on
-    x's device; None draws from the default generator)."""
+    x's device; None draws from the default generator).
+
+    ``rows`` = (axis, start, total): x holds the rows [start, start +
+    x.shape[axis]) of a batch of ``total`` along ``axis``, a data-parallel
+    rank's share. The mask is drawn at the whole batch's shape and cut, so
+    the ranks' generators stay in step and N ranks drop what one would."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape
+    if rows is not None:
+        axis, start, total = rows
+        shape = shape[:axis] + (total,) + shape[axis + 1:]
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if rows is not None:
+        mask = mask.narrow(axis, start, x.shape[axis])
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))

@@ -8,6 +8,14 @@ learning-rate annealing on WER, keep-best-WER checkpoints with resume and
 the finetune warm start, per-clip result JSONs and the plain-text train
 log. One process drives one device; the host loads and stages numpy
 batches, the steps move them to the device.
+
+Data parallelism (``use_mesh=True``, the JAX Trainer's device mesh): one
+process per device in a torch.distributed group (torchrun,
+parallel.distributed_init). Every rank builds the same global batch plan
+and targets, checked on the first batch (``parallel.assert_ranks_agree``),
+uploads only its rows of the feature array, and runs the data-parallel
+steps of train/step.py; rank 0 alone writes checkpoints, result JSONs, the
+train log and step times.
 """
 
 from __future__ import annotations
@@ -20,7 +28,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .. import parallel
 from ..config import ExperimentConfig
 from ..data.datasets import load_time_signatures
 from ..models.convert import init_state_dict
@@ -65,18 +75,29 @@ def _stage_cast(dtype, key: str = "spectrogram"):
 class Trainer:
     """The training harness on ``device`` (default CUDA; raises without
     it). Weights come from ``init_state_dict(cfg, exp.seed)``, or from
-    ``state_dict`` (e.g. weights converted from the JAX package)."""
+    ``state_dict`` (e.g. weights converted from the JAX package).
+
+    ``use_mesh=True``: data-parallel over the initialised process group
+    (parallel.distributed_init), on this rank's device (a bare "cuda" is
+    cuda:LOCAL_RANK), with rank 0's weights broadcast after construction
+    and after every restore. ``exp.batch_size`` is the global batch."""
 
     def __init__(self, exp: ExperimentConfig, device="cuda",
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  use_mesh: bool = False):
-        if use_mesh:
-            raise ValueError("use_mesh: data-parallel training is not "
-                             "ported yet (ROADMAP Queue 1 item 3, data "
-                             "parallel)")
         self.exp = exp
         self.cfg = exp.model_config()
-        self.device = resolve_device(device)
+        self.group = None
+        if use_mesh:
+            if not parallel.is_initialized():
+                raise ValueError(
+                    "use_mesh=True (data-parallel training) needs an "
+                    "initialised process group: run under torchrun and call "
+                    "piano_a2s_tpu_torch.parallel.distributed_init() first")
+            self.group = dist.group.WORLD
+            self.device = parallel.local_device(device)
+        else:
+            self.device = resolve_device(device)
         # Mixed-precision ConvStack training (extras `train_dtype:
         # bfloat16`): the conv stack computes and keeps its activations in
         # bf16, its BatchNorm statistics in float32; the parameters, the
@@ -102,6 +123,8 @@ class Trainer:
             state_dict if state_dict is not None
             else init_state_dict(self.cfg, exp.seed), strict=True)
         self.model.to(self.device)
+        if self.group is not None:
+            parallel.broadcast_module_(self.model, group=self.group)
         self.optimizer = self._new_optimizer()
         # Gradient accumulation: microbatch the train step so that its
         # activations are those of one microbatch.
@@ -182,7 +205,7 @@ class Trainer:
             max_frame_num=exp.max_frame_num, ga_weight=self.ga_weight,
             ga_sigma=self.ga_sigma, ga_dur_frac=self.ga_dur_frac,
             ga_map=self.ga_map, conv_dtype=self.conv_dtype,
-            device=self.device)
+            device=self.device, group=self.group)
         # Length bucketing: a batch whose longest target is far below the
         # caps decodes to a shorter width (rounded up to bucket_tokens);
         # exact, as the cut positions are all <pad>. 0 disables it.
@@ -199,8 +222,13 @@ class Trainer:
             initial_value=exp.lr, annealing_factor=exp.annealing_factor,
             improvement_threshold=exp.improvement_threshold,
             patient=exp.patient)
-        # One process: it writes the checkpoints, results and logs.
-        self.is_main_process = True
+        # Rank 0 alone writes the checkpoints, results and logs (all ranks
+        # compute the same). Every rank must build the same global batches
+        # (same loader seed and dataset listing): checked on the first.
+        self.is_main_process = (self.group is None
+                                or dist.get_rank(self.group) == 0)
+        self._batch_contract_ok = (self.group is None
+                                   or dist.get_world_size(self.group) == 1)
         self.checkpointer = Checkpointer(exp.save_folder)
         self.logger = FileTrainLogger(exp.train_log)
         self.start_epoch = 1
@@ -222,10 +250,15 @@ class Trainer:
         """The arrays a step takes: the host-only keys dropped, the staging
         cast applied to train batches, and "sample_weight" zero on the
         final batch's padding rows (they add nothing to the losses, the
-        gradients or the BatchNorm statistics)."""
-        if batch.get("local_rows") is not None:
+        gradients or the BatchNorm statistics).
+
+        Data parallel: the targets and weights stay global, the feature
+        array is cut to this rank's rows (``parallel.local_rows``), or, from
+        per-host sharded loading, its rows are checked against them."""
+        local_rows = batch.get("local_rows")
+        if local_rows is not None and self.group is None:
             raise ValueError("per-host sharded batches need data-parallel "
-                             "training (ROADMAP Queue 1 item 3)")
+                             "training (Trainer(use_mesh=True))")
         dev = {k: v for k, v in batch.items() if k not in HOST_KEYS}
         if train and self.upload_dtype is not None:
             # Eval batches stay as loaded: validation WER is a parity
@@ -238,11 +271,41 @@ class Trainer:
         weights = np.zeros(b, np.float32)
         weights[:n_real] = 1.0
         dev["sample_weight"] = weights
+        if self.group is None:
+            return dev
+        if not self._batch_contract_ok:
+            if local_rows is None:
+                parallel.assert_ranks_agree(dev, self.group)
+            else:
+                # Sharded loading: the feature arrays differ by design; the
+                # contract is the global plan, targets and weights.
+                meta = {k: v for k, v in dev.items()
+                        if k != self.feature_key}
+                for k in ("names", "versions"):
+                    meta[k] = np.frombuffer(
+                        "\x00".join(map(str, batch[k])).encode(), np.uint8)
+                parallel.assert_ranks_agree(meta, self.group)
+            self._batch_contract_ok = True
+        r = dist.get_rank(self.group)
+        rows = parallel.local_rows(r, dist.get_world_size(self.group), b,
+                                   self.accum_steps if train else 1)
+        k = self.feature_key
+        if local_rows is None:
+            dev[k] = dev[k][rows]
+        elif not np.array_equal(local_rows, rows):
+            raise ValueError(
+                f"loader shard rows {np.asarray(local_rows).tolist()} != "
+                f"rows {rows.tolist()} owned by rank {r}: the DataLoader's "
+                f"shard=(rank, world) and accum_steps must follow the "
+                f"process group and the Trainer's accum_steps")
         return dev
 
-    @staticmethod
-    def barrier(tag: str) -> None:
-        """Cross-process rendezvous: nothing to wait for in one process."""
+    def barrier(self, tag: str) -> None:
+        """Cross-process rendezvous (nothing to wait for without a group):
+        where ranks must not read checkpoint state that rank 0 may still be
+        writing."""
+        if self.group is not None:
+            parallel.barrier(self.group)
 
     # ------------------------------------------------------------ checkpoint
 
@@ -255,6 +318,8 @@ class Trainer:
                 "global_step": self.global_step}
 
     def save_checkpoint(self, epoch: int, meta: Dict[str, Any]):
+        if not self.is_main_process:
+            return
         self.checkpointer.save_and_keep_only(
             self._trees(), meta, self._host_state(epoch), min_keys=("WER",))
 
@@ -274,10 +339,19 @@ class Trainer:
             self.scheduler.load_state_dict(host_state["scheduler"])
         self.start_epoch = int(host_state.get("epoch", 0)) + 1
         self.global_step = int(host_state.get("global_step", 0))
+        if self.group is not None:
+            parallel.broadcast_module_(self.model, group=self.group)
         return meta
 
+    def _agreed(self, path: Optional[str]) -> Optional[str]:
+        """Rank 0's choice of checkpoint on every rank (restore issues a
+        broadcast, so no rank may decide from its own view of the disk)."""
+        if self.group is None:
+            return path
+        return parallel.broadcast_path(path, self.group)
+
     def try_resume(self) -> bool:
-        path = self.checkpointer.latest_path()
+        path = self._agreed(self.checkpointer.latest_path())
         if path is None:
             return False
         self.restore(path)
@@ -344,7 +418,8 @@ class Trainer:
 
             batches = iter(train_loader)
             if (self.profile and epoch == self.start_epoch
-                    and self.profile_trace_steps > 0):
+                    and self.profile_trace_steps > 0
+                    and self.is_main_process):
                 with trace(os.path.join(self.exp.output_folder, "profile")):
                     for batch in itertools.islice(
                             batches, self.profile_trace_steps):
@@ -365,12 +440,13 @@ class Trainer:
                     since=epoch_mark).get("train_step")
                 if summ:
                     stats_meta["step_ms"] = round(summ["mean_s"] * 1e3, 2)
-            self.logger.log_stats(stats_meta=stats_meta,
-                                  train_stats=self.train_stats,
-                                  valid_stats=stage_stats)
+            if self.is_main_process:
+                self.logger.log_stats(stats_meta=stats_meta,
+                                      train_stats=self.train_stats,
+                                      valid_stats=stage_stats)
             self.save_checkpoint(epoch, {"loss": stage_stats["loss"],
                                          "WER": stage_stats["WER"]})
-        if self.step_timer is not None:
+        if self.step_timer is not None and self.is_main_process:
             prof_dir = os.path.join(self.exp.output_folder, "profile")
             os.makedirs(prof_dir, exist_ok=True)
             with open(os.path.join(prof_dir, "step_times.json"), "w") as f:
@@ -398,12 +474,13 @@ class Trainer:
 
     def evaluate(self, test_loader, min_key: str = "WER"):
         self.barrier("evaluate:before-restore")
-        path = self.checkpointer.best_path(min_key)
+        path = self._agreed(self.checkpointer.best_path(min_key))
         if path is not None:
             self.restore(path)
         stage_stats = self._eval_stage(test_loader, "test", epoch=None)
-        self.logger.log_stats(stats_meta={"stage": "test"},
-                              test_stats=stage_stats)
+        if self.is_main_process:
+            self.logger.log_stats(stats_meta={"stage": "test"},
+                                  test_stats=stage_stats)
         return stage_stats
 
     # ------------------------------------------------------------ eval core
@@ -454,6 +531,8 @@ class Trainer:
         }
 
         # Per-clip result JSONs (reference: pretrain.py:189-214).
+        if not self.is_main_process:
+            return stage_stats
         results_dir = os.path.join(self.exp.output_folder, "results", split)
         os.makedirs(results_dir, exist_ok=True)
         for id_ in upper_pred:

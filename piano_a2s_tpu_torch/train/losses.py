@@ -145,6 +145,18 @@ def fused_component_sums(outputs, batch, pad_index: int = 147,
     return nums
 
 
+def full_component_sums(outputs, batch, pad_index: int = 147,
+                        sample_weight=None) -> Dict[str, torch.Tensor]:
+    """``fused_component_sums`` of a forward that emits full distributions
+    (the eval step's greedy decode): the staff log-probs are picked at the
+    targets first. Over the batch's totals they give transcription_loss's
+    components."""
+    ts_logp, key_logp, up_logp, low_logp = outputs[:4]
+    picked = (ts_logp, key_logp, _pick(up_logp, batch["upper"]),
+              _pick(low_logp, batch["lower"])) + tuple(outputs[4:])
+    return fused_component_sums(picked, batch, pad_index, sample_weight)
+
+
 def component_totals(batch, pad_index: int = 147, sample_weight=None,
                      ga: bool = False) -> Dict[str, torch.Tensor]:
     """The mean denominators of the whole batch, from the targets alone.

@@ -12,6 +12,21 @@ reads them.
 
 Training on the card turns TF32 off (``make_train_steps`` calls
 ``use_full_float32``): the JAX package is the float32 reference.
+
+Data parallelism (``group``, a torch.distributed process group; the JAX
+package's step jitted over a device mesh): every rank takes the global
+batch's targets and sample weights, and either the global batch's feature
+array or its own rows of it (per-host sharded loading); it computes its
+rows (``parallel.local_rows``) with the global batch's BatchNorm
+statistics, dropout masks and stop steps, all-reduces the sum of the
+gradients as one flat buffer after the backward (after the last
+microbatch) and the loss numerators, and divides by the totals of the
+global targets. So the norm, the clip, the skip on a non-finite value, the
+BatchNorm buffers and Adadelta agree on every rank, and equal one rank's
+step on the whole batch. No DDP wrapper: the teacher-forced decode's ~2000
+checkpointed steps read the same decoder weights, where DDP's reducer
+expects one ready event per parameter per backward, and it would average
+a loss that is already divided by global totals.
 """
 
 from __future__ import annotations
@@ -22,15 +37,18 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..models.score_transcription import ScoreTranscription
 from ..ops.vqt import VQTConfig, filters, get_vqt
+from ..parallel import all_reduce_, local_rows
 from ..symbolic.vocab import LabelsMultiple
 from ..utils.audio import PCM16_SCALE
 from ..utils.device import resolve_device, use_full_float32
-from .losses import (component_totals, fused_component_sums,
-                     transcription_loss, transcription_loss_fused)
+from .losses import (component_totals, full_component_sums,
+                     fused_component_sums, transcription_loss,
+                     transcription_loss_fused)
 
 MAX_GRAD_NORM = 5.0
 
@@ -138,28 +156,53 @@ def _restore(model: torch.nn.Module, saved) -> None:
 
 
 def _forward(model: ScoreTranscription, batch: Batch, generator, tf_ratio,
-             ga_weight, ga_sigma, ga_dur_frac, ga_map, conv_dtype):
+             ga_weight, ga_sigma, ga_dur_frac, ga_map, conv_dtype,
+             group=None):
     return model(batch["spectrogram"], train=True,
                  ground_truth=_ground_truth(batch), tf_ratio=tf_ratio,
                  emit_full=False, sample_weight=batch.get("sample_weight"),
                  ga_sigma=(ga_sigma if ga_weight else 0.0),
                  ga_dur_frac=ga_dur_frac, ga_content=batch.get("ga_content"),
-                 ga_map=ga_map, conv_dtype=conv_dtype, generator=generator)
+                 ga_map=ga_map, conv_dtype=conv_dtype, generator=generator,
+                 group=group)
+
+
+def rank_rows(batch: Batch, accum_steps: int, group) -> Batch:
+    """This rank's rows (``parallel.local_rows``) of every array of a
+    global batch; an array that already holds only the rank's rows (the
+    feature array of per-host sharded loading) passes as it is."""
+    size = batch["time_sig"].shape[0]
+    n = dist.get_world_size(group)
+    rows = local_rows(dist.get_rank(group), n, size, accum_steps)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] == size:
+            out[k] = v[torch.as_tensor(rows, device=v.device)]
+        elif v.shape[0] == len(rows):
+            out[k] = v
+        else:
+            raise ValueError(f"{k!r} has {v.shape[0]} rows: neither the "
+                             f"global batch's {size} nor this rank's "
+                             f"{len(rows)}")
+    return out
 
 
 def _clip_and_update(model: ScoreTranscription,
                      optimizer: torch.optim.Optimizer, loss: torch.Tensor,
-                     before) -> torch.Tensor:
+                     before, group=None) -> torch.Tensor:
     """Clip the gradients at a global norm of 5.0 (scaled by 5 / norm, as
     the JAX package does, without clip_grad_norm_'s + 1e-6), then step, or
     skip the step and restore the BatchNorm buffers to ``before`` when the
     loss or the norm is not finite. The finiteness check is the step's one
-    read on the host. Returns the norm before clipping."""
+    read on the host. Returns the norm before clipping. ``group``: the
+    gradients are first summed over the ranks, one flat all-reduce."""
     grads = []
     for p in model.parameters():
         if p.grad is None:  # JAX differentiates every leaf: zeros
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
+    if group is not None:
+        all_reduce_(grads, group)
     gnorm = torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     scale = torch.where(gnorm > MAX_GRAD_NORM, MAX_GRAD_NORM / gnorm,
@@ -177,7 +220,8 @@ def train_step(model: ScoreTranscription, optimizer: torch.optim.Optimizer,
                tf_ratio: float, prep: Callable[[Batch], Batch] = _promote_staged,
                ga_weight: float = 0.0, ga_sigma: float = 0.15,
                ga_dur_frac=None, ga_map: str = "auto",
-               conv_dtype: Optional[torch.dtype] = None) -> StepOutput:
+               conv_dtype: Optional[torch.dtype] = None,
+               group=None) -> StepOutput:
     """One optimizer step on ``batch`` (tensors on the model's device).
 
     The fused-loss forward (emit_full=False) feeds the NLL with the
@@ -186,7 +230,13 @@ def train_step(model: ScoreTranscription, optimizer: torch.optim.Optimizer,
     masks and teacher-forcing coins come from ``generator``.
     ``conv_dtype`` (torch.bfloat16) runs the ConvStack in mixed precision
     (ScoreTranscription.forward); parameters, their gradients, the
-    optimizer state and the BN buffers stay float32."""
+    optimizer state and the BN buffers stay float32. ``group``: a
+    data-parallel step (train_step_accum with one microbatch).
+    """
+    if group is not None:
+        return train_step_accum(model, optimizer, batch, generator, tf_ratio,
+                                1, prep, ga_weight, ga_sigma, ga_dur_frac,
+                                ga_map, conv_dtype, group)
     # A zero-width guide is no guide.
     ga_weight = ga_weight if ga_sigma > 0 else 0.0
     model.train()  # cuDNN's RNN backward needs the training mode
@@ -216,7 +266,8 @@ def train_step_accum(model: ScoreTranscription,
                      prep: Callable[[Batch], Batch] = _promote_staged,
                      ga_weight: float = 0.0, ga_sigma: float = 0.15,
                      ga_dur_frac=None, ga_map: str = "auto",
-                     conv_dtype: Optional[torch.dtype] = None) -> StepOutput:
+                     conv_dtype: Optional[torch.dtype] = None,
+                     group=None) -> StepOutput:
     """One optimizer step on ``batch`` split into ``accum_steps``
     microbatches run one after another, so the activations are those of
     one microbatch.
@@ -227,14 +278,24 @@ def train_step_accum(model: ScoreTranscription,
     monolithic step is BatchNorm: each microbatch normalises by its own
     statistics, and the running statistics take exactly one momentum
     update per optimizer step, microbatch 0's; those of microbatches
-    1..k-1 are thrown away. ``prep`` runs per microbatch."""
+    1..k-1 are thrown away. ``prep`` runs per microbatch.
+
+    ``group`` (data parallelism): ``batch`` is the global batch (its
+    feature array may be this rank's rows already); microbatch m is the
+    global rows [m B/A, (m+1) B/A), of which this rank computes the r-th
+    of N slices (ValueError unless A N divides B). The totals come from the
+    global targets; the gradients and the numerators are summed over the
+    ranks."""
     ga_weight = ga_weight if ga_sigma > 0 else 0.0
     model.train()
     sw = batch.get("sample_weight")
     totals = component_totals(batch, model.cfg.pad, sample_weight=sw,
                               ga=bool(ga_weight))
-    size = next(iter(batch.values())).shape[0]
-    if size % accum_steps:
+    size = batch["time_sig"].shape[0]
+    if group is not None:
+        batch = rank_rows(batch, accum_steps, group)
+        size = batch["time_sig"].shape[0]
+    elif size % accum_steps:
         raise ValueError(f"accum_steps={accum_steps} does not divide the "
                          f"batch of {size}")
     micro = size // accum_steps
@@ -248,7 +309,7 @@ def train_step_accum(model: ScoreTranscription,
                        for k, v in batch.items()})
         with record_function("train_step/forward"):
             outs = _forward(model, mb, generator, tf_ratio, ga_weight,
-                            ga_sigma, ga_dur_frac, ga_map, conv_dtype)
+                            ga_sigma, ga_dur_frac, ga_map, conv_dtype, group)
         with record_function("train_step/loss"):
             nums = fused_component_sums(
                 outs, mb, model.cfg.pad,
@@ -261,31 +322,66 @@ def train_step_accum(model: ScoreTranscription,
         if m == 0:
             after_first = _snapshot(model)
     _restore(model, after_first)
+    if group is not None:
+        all_reduce_(list(nums_acc.values()), group)
     comps = {k: nums_acc[k] / totals[k] for k in nums_acc}
     loss = sum(comps.values())
     with record_function("train_step/update"):
-        gnorm = _clip_and_update(model, optimizer, loss, before)
+        gnorm = _clip_and_update(model, optimizer, loss, before, group)
     return StepOutput(loss, comps, gnorm)
 
 
 @torch.no_grad()
 def eval_step(model: ScoreTranscription, batch: Batch,
-              prep: Callable[[Batch], Batch] = _promote_staged):
+              prep: Callable[[Batch], Batch] = _promote_staged, group=None):
     """Free-running (greedy) inference and the loss of its outputs against
     the targets, as the reference evaluates. Returns (StepOutput,
-    predictions dict)."""
+    predictions dict).
+
+    ``group`` (data parallelism, a global batch): each rank decodes its
+    rows, all ranks stop together (the JAX package's eval is one loop over
+    the global batch), and every rank gets the global batch's predictions
+    and loss: its rows go into zero-filled global buffers and its loss
+    numerators are summed over the ranks, then divided by the totals of
+    the global targets."""
     model.eval()
+    if group is not None:
+        return _eval_step_dp(model, batch, prep, group)
     batch = prep(batch)
     outs = model(batch["spectrogram"])
-    ts_logp, key_logp, _, _, aux = outs
     loss, comps = transcription_loss(outs, batch, model.cfg.pad,
                                      sample_weight=batch.get("sample_weight"))
+    return StepOutput(loss, comps), _predictions(outs)
+
+
+def _predictions(outs) -> Dict[str, torch.Tensor]:
+    ts_logp, key_logp, _, _, aux = outs
     preds = {"time_sig": ts_logp.argmax(dim=-1),
              "key": key_logp.argmax(dim=-1)}
     for k in ("upper_tokens", "lower_tokens", "upper_lengths",
               "lower_lengths"):
         preds[k] = aux[k]
-    return StepOutput(loss, comps), preds
+    return preds
+
+
+def _eval_step_dp(model: ScoreTranscription, batch: Batch, prep, group):
+    size = batch["time_sig"].shape[0]
+    local = prep(rank_rows(batch, 1, group))
+    outs = model(local["spectrogram"], group=group)
+    nums = full_component_sums(outs, local, model.cfg.pad,
+                               sample_weight=local.get("sample_weight"))
+    totals = component_totals(batch, model.cfg.pad,
+                              sample_weight=batch.get("sample_weight"))
+    rows = torch.as_tensor(local_rows(dist.get_rank(group),
+                                      dist.get_world_size(group), size),
+                           device=outs[0].device)
+    preds = {}
+    for k, v in _predictions(outs).items():
+        preds[k] = v.new_zeros((size,) + v.shape[1:])
+        preds[k][rows] = v
+    all_reduce_(list(nums.values()) + list(preds.values()), group)
+    comps = {k: nums[k] / totals[k] for k in nums}
+    return StepOutput(sum(comps.values()), comps), preds
 
 
 def batch_to_device(batch, device) -> Batch:
@@ -299,11 +395,15 @@ def make_train_steps(optimizer: torch.optim.Optimizer, accum_steps: int = 1,
                      max_frame_num: int = 1201, ga_weight: float = 0.0,
                      ga_sigma: float = 0.15, ga_dur_frac=None,
                      ga_map: str = "auto",
-                     conv_dtype: Optional[torch.dtype] = None, device="cuda"):
+                     conv_dtype: Optional[torch.dtype] = None, device="cuda",
+                     group=None):
     """(train_step(model, batch, generator, tf_ratio) -> StepOutput,
     eval_step(model, batch) -> (StepOutput, predictions)) for a model and
     ``optimizer`` on ``device``: the counterpart of the JAX package's
-    make_jitted_steps, on one device (data parallel is a later slice).
+    make_jitted_steps. ``group`` (a torch.distributed process group) makes
+    both steps data-parallel over its ranks, one per device, each given the
+    global batch (see the module docstring); the model's weights must
+    agree on every rank (parallel.broadcast_module_).
 
     Batches may hold numpy arrays; they are moved to ``device``.
     accum_steps > 1 splits each batch into that many microbatches
@@ -319,7 +419,8 @@ def make_train_steps(optimizer: torch.optim.Optimizer, accum_steps: int = 1,
     prep = (make_audio_frontend(vqt_cfg, max_frame_num, dev) if from_audio
             else _promote_staged)
     opts = dict(prep=prep, ga_weight=ga_weight, ga_sigma=ga_sigma,
-                ga_dur_frac=ga_dur_frac, ga_map=ga_map, conv_dtype=conv_dtype)
+                ga_dur_frac=ga_dur_frac, ga_map=ga_map, conv_dtype=conv_dtype,
+                group=group)
     if accum_steps > 1:
         step = functools.partial(train_step_accum, accum_steps=accum_steps,
                                  **opts)
@@ -331,6 +432,7 @@ def make_train_steps(optimizer: torch.optim.Optimizer, accum_steps: int = 1,
                     tf_ratio)
 
     def e_step(model, batch):
-        return eval_step(model, batch_to_device(batch, dev), prep=prep)
+        return eval_step(model, batch_to_device(batch, dev), prep=prep,
+                         group=group)
 
     return t_step, e_step

@@ -648,10 +648,10 @@ def test_train_commands_train_in_bf16_from_an_override(tmp_path, monkeypatch,
     forward_train = tst.ConvStack.forward_train
 
     def spy(self, x, sample_weight=None, generator=None,
-            compute_dtype=None):
+            compute_dtype=None, group=None):
         seen.append(compute_dtype)
         return forward_train(self, x, sample_weight, generator,
-                             compute_dtype)
+                             compute_dtype, group)
     monkeypatch.setattr(tst.ConvStack, "forward_train", spy)
     cli = {"pretrain": tpretrain, "finetune": tfinetune}[command]
     corpus = {"pretrain": "synth", "finetune": "asap"}[command]

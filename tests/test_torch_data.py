@@ -110,8 +110,14 @@ def test_test_loader_and_shard_equal(corpus, features):
     _assert_batches_equal(got, ref)
     assert len(got) == 3 and got[-1]["n_real"] == 2
     got, ref = _both(lambda mod: make(mod, shard=(1, 2)))
+    # The port's local_rows is the index array of the rank's rows (with
+    # accum_steps, its slice of every microbatch); the JAX package's is
+    # the contiguous (lo, hi) it equals at accum_steps=1.
+    for g, r in zip(got, ref):
+        lo, hi = r.pop("local_rows")
+        np.testing.assert_array_equal(g.pop("local_rows"), np.arange(lo, hi))
+        assert (lo, hi) == (2, 4)
     _assert_batches_equal(got, ref)
-    assert got[0]["local_rows"] == (2, 4)
     assert got[0][features].shape[0] == 2
 
 

@@ -515,7 +515,7 @@ def test_data_parallel_and_missing_card_raise(tmp_path, monkeypatch, capsys):
     for flag in ("--data-parallel", "--multihost"):
         with pytest.raises(SystemExit):
             tpretrain.main(["x.yaml", flag, "--device", "cpu"])
-        assert "ROADMAP Queue 1 item 3" in capsys.readouterr().err
+        assert "runs under torchrun" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tharness.Trainer(exp)
