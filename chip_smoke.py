@@ -79,6 +79,20 @@ Phases, each of which raises on failure:
       card), global batch 4, each within 1e-5 of world size 1 and the two
       identical; where there are two cards, the same over NCCL on cuda:0
       and cuda:1. Prints seconds per step and peak memory per rank.
+  (k) the synth path at full width. (k1) a learnable corpus written at run
+      time with the port's data/synth.py: write_corpus (2 songs, direct
+      host VQT, float32 audio) and 4 songs of make_song with 2-4 upper and
+      1-3 lower notes a bar; host seconds a song. (k2) each clip's stored
+      audio through get_vqt on the card (the VQT kernel) against its stored
+      host spectrogram over the clip's own frames, within 1e-4 (the plain
+      f32 version's error printed beside it). (k3) the model of seed 0
+      trained on the 4 short clips from audio (the kernel in every step),
+      Adadelta at lr 1.0, tf 1.0, until its greedy decode emits EOS in every
+      bar of both staves and matches the targets above 0.8 (checked every
+      10 steps; fails at a cap of 180 steps); prints the steps, seconds,
+      first and last loss and the match. (k4) a Transcriber of the
+      memorized weights on the clips tiled to 16, in turns with the
+      random-weight Transcriber of (e): clips/s and decode steps a bar.
 
 Each main path has its own launch counts, zeroed just before it and read
 just after it: serving over (e) and (f), training over (g2), the harness
@@ -87,14 +101,16 @@ batch and transcribe call, bf16 serving over (i1)'s batch and request,
 bf16 training over (i2), once per step, mesh serving over one call of each
 mesh Transcriber of (j1), once per shard, and data-parallel training over
 (j2)'s world-size-1 step and eval and the ranks' steps (which print their
-counts), once per rank per microbatch. Each path must have launched every
-kernel it runs. The line before the last holds the
-kernels' JSON record (``launches`` is the sum over the paths,
+counts), once per rank per microbatch, and the synth path over (k3) and
+(k4)'s first batch, once per train step, greedy decode and batch. Each
+path must have launched every kernel it runs. The line before the last
+holds the kernels' JSON record (``launches`` is the sum over the paths,
 ``launches_by_path`` each path's count); the last line is the result
 object.
 
 ``python3 chip_smoke.py --train-dp-rank RANK WORLD INIT BACKEND DEVICE OUT``
-is one rank of (j2), started by (j2) itself.
+is one rank of (j2), started by (j2) itself. The run prints its total
+seconds before the kernels' record.
 """
 
 import gc
@@ -135,6 +151,14 @@ H_SAMPLES, H_UPPER, H_LOWER = (160000, 192000), (10, 120), (5, 60)
 # sum the gradients in another order than one rank), a rank's time limit.
 J_SHARDS, TOL_DP_WORLD1, TOL_DP_RANKS, DP_TIMEOUT_S = 2, 1e-6, 1e-5, 600
 DP_RANK_SCRIPT = os.path.abspath(__file__)  # (j2)'s ranks run this file
+# (k): songs of write_corpus held against the kernel in (k2); the clips
+# (k3) memorizes, with fewer notes a bar than the corpus's (4-9 upper, 3-6
+# lower) so that the teacher-forced decode is short; its tf ratio, greedy
+# decode every K_EVAL_EVERY steps, the match it must pass and its step cap
+# (twice the 90 steps it took on an H100).
+K_SEED, K_CORPUS_SONGS, K_CLIPS = 11, 2, 4
+K_UPPER_NOTES, K_LOWER_NOTES = (2, 4), (1, 3)
+K_TF, K_EVAL_EVERY, K_MATCH, K_MAX_STEPS = 1.0, 10, 0.8, 180
 # H100 SXM data sheet: HBM 3.35 TB/s; dense TF32 tensor cores 494.7 TFLOP/s.
 HBM_BYTES_PER_S, TF32_FLOP_PER_S = 3.35e12, 494.7e12
 
@@ -1171,6 +1195,237 @@ def phase_trainer(torch):
             + 2 * batches(H_ASAP["test"]) + 1)
 
 
+def write_short_songs(base, n_songs, seed):
+    """(k1) ``n_songs`` songs of synth.make_song with K_UPPER_NOTES and
+    K_LOWER_NOTES notes a bar, written with the module's own _write_song
+    (direct host VQT, float32 audio) into ``base`` (a {split}/{version}
+    folder). Returns the seconds per song."""
+    from piano_a2s_tpu_torch.data import synth
+    from piano_a2s_tpu_torch.ops.vqt import VQTConfig, get_vqt_host
+    for sub in ("target", "info", "spectrogram", "audio"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    t0 = time.monotonic()
+    for s in range(n_songs):
+        target, audio = synth.make_song(rng, upper_notes=K_UPPER_NOTES,
+                                        lower_notes=K_LOWER_NOTES)
+        chunk = f"short{seed}_{s:03d}"
+        synth._write_song(base, chunk, f"{chunk}~v0~Upright", target, audio,
+                          get_vqt_host, VQTConfig(), 1201, True, 5)
+    return (time.monotonic() - t0) / n_songs
+
+
+def phase_synth_features(torch, tvqt, folders):
+    """(k2) Each clip's stored float32 audio/*.npy, zero-padded to 12 s as
+    the loader pads it, through get_vqt on the card (the VQT kernel) and
+    through the plain f32 version, each against the stored
+    host spectrogram over the clip's own 1 + L // 160 frames. Returns the
+    largest error of each."""
+    paths = sorted(os.path.join(f, "audio", n) for f in folders
+                   for n in os.listdir(os.path.join(f, "audio")))
+    audio = [np.load(p) for p in paths]
+    host = [np.load(p.replace(os.sep + "audio" + os.sep,
+                              os.sep + "spectrogram" + os.sep))
+            for p in paths]
+    check(all(a.dtype == np.float32 for a in audio), "(k2) float32 audio")
+    y = torch.tensor(np.stack([np.pad(a, (0, CLIP_SAMPLES - len(a)))
+                               for a in audio]), device="cuda")
+    cfg = tvqt.VQTConfig()
+    kernels = tvqt.filters(cfg, "cuda")
+    with torch.inference_mode():
+        got = tvqt.get_vqt(y, kernels, cfg).cpu().numpy()
+        plain = tvqt.log_compress(tvqt.vqt_magnitude_torch(y, kernels, cfg))
+        plain = plain.cpu().numpy()
+    err = {"kernel": 0.0, "plain": 0.0}
+    for i, (a, h) in enumerate(zip(audio, host)):
+        n = 1 + len(a) // cfg.hop_length
+        check(h.shape == (n, cfg.n_bins), f"(k2) stored spectrogram {i}")
+        err["kernel"] = max(err["kernel"], float(np.abs(got[i, :n] - h).max()))
+        err["plain"] = max(err["plain"], float(np.abs(plain[i, :n] - h).max()))
+    print(f"(k2) {len(paths)} clips of {sorted({len(a) for a in audio})} "
+          f"samples: get_vqt on the card against the stored host "
+          f"spectrograms, max|difference| {err['kernel']:.3e} (atol "
+          f"{TOL_SPEC}); the plain f32 version's {err['plain']:.3e}")
+    check(err["kernel"] <= TOL_SPEC, "(k2) the VQT kernel gives the host "
+          "feature pass's spectrograms")
+    return err
+
+
+def memorized(preds, batch, eos):
+    """(every bar of both staves emitted EOS, the share of tokens plus EOS
+    equal to the targets) of a greedy decode: tests/test_overfit.py's
+    measure, over both staves."""
+    stopped, matches, total = True, 0, 0
+    for staff in ("upper", "lower"):
+        tok = preds[f"{staff}_tokens"].cpu().numpy()
+        gt, lens = batch[staff], batch[f"{staff}_lengths"]
+        stopped &= bool((tok == eos).any(-1).all())
+        for i in range(gt.shape[0]):
+            for m in range(gt.shape[1]):
+                n = int(lens[i, m]) + 1
+                total += n
+                matches += int((tok[i, m, :n] == gt[i, m, :n]).sum())
+    return stopped, matches / total
+
+
+def memorize_batch(folder, n_clips, cfg):
+    """(k3)'s batch: every clip of ``folder`` (a {split}/{version} folder
+    of the synth layout) through the port's SyntheticTrainDataset and
+    DataLoader from audio, the target arrays cut to the longest target
+    plus EOS (the teacher-forced decode runs to their width; the cut
+    positions are all <pad>)."""
+    from piano_a2s_tpu_torch.data.datasets import (DataLoader,
+                                                   SyntheticTrainDataset)
+    split_dir, version = os.path.split(os.path.normpath(folder))
+    root, split = os.path.split(split_dir)
+    ds = SyntheticTrainDataset(root, split, versions=[int(version)],
+                               max_length=cfg.max_length,
+                               input_features="audio",
+                               rng=np.random.RandomState(0))
+    (batch,) = list(DataLoader(ds, n_clips, shuffle=False))
+    batch = {k: v for k, v in batch.items()
+             if k not in ("names", "versions", "n_real")}
+    for staff in ("upper", "lower"):
+        width = int(batch[f"{staff}_lengths"].max()) + 1
+        batch[staff] = batch[staff][..., :width]
+    return batch
+
+
+def phase_memorize(torch, tmodels, tstep, tvqt, batch, cfg):
+    """(k3) Train the model of seed 0 on one fixed batch from audio (the
+    VQT kernel inside every step on the card) with Adadelta at lr 1.0, tf
+    K_TF, until the greedy decode (eval-mode BatchNorm, e_step) of the
+    batch emits EOS in every bar of both staves and matches its targets
+    above K_MATCH; checked every K_EVAL_EVERY steps. Fails at the step
+    cap. Returns (state dict, steps, evals)."""
+    model = tmodels.ScoreTranscription(cfg)
+    model.load_state_dict(tmodels.init_state_dict(cfg, seed=0), strict=True)
+    model.to("cuda")
+    t_step, e_step = tstep.make_train_steps(
+        tstep.make_optimizer(model.parameters(), lr=1.0), from_audio=True,
+        vqt_cfg=tvqt.VQTConfig(), max_frame_num=1201)
+    gen = torch.Generator("cuda").manual_seed(0)
+    losses, evals, match, stopped = [], 0, 0.0, False
+    t0 = time.monotonic()
+    step = 0
+    while step < K_MAX_STEPS and not (stopped and match > K_MATCH):
+        step += 1
+        out = t_step(model, batch, gen, K_TF)
+        losses.append(float(out.loss))
+        check(np.isfinite(losses[-1]), f"(k3) step {step} finite loss")
+        if step % K_EVAL_EVERY == 0:
+            _, preds = e_step(model, batch)
+            evals += 1
+            stopped, match = memorized(preds, batch, cfg.eos)
+            print(f"(k3) step {step}: loss {losses[-1]:.4f}; greedy decode "
+                  f"EOS in every bar {stopped}, match {match:.3f} "
+                  f"({time.monotonic() - t0:.1f} s)")
+    seconds = time.monotonic() - t0
+    print(f"(k3) memorized {batch['audio'].shape[0]} clips at width "
+          f"(upper {batch['upper'].shape[-1]}, lower "
+          f"{batch['lower'].shape[-1]}) in {step} steps and {evals} greedy "
+          f"decodes, {seconds:.1f} s ({seconds / step:.3f} s a step with the "
+          f"decodes); loss first {losses[0]:.4f}, last {losses[-1]:.4f}; "
+          f"match {match:.3f} (above {K_MATCH}), EOS in every bar {stopped}"
+          f"; step cap {K_MAX_STEPS}")
+    check(stopped and match > K_MATCH,
+          f"(k3) memorized before the step cap of {K_MAX_STEPS}")
+    return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+            step, evals)
+
+
+def decode_steps_a_bar(tr, clips):
+    """Mean over bars of the greedy loop's steps (the largest length over
+    the batch and both staves: an item's length is its last EOS step + 1,
+    the loop stops a staff when every item has emitted one)."""
+    arrays = tr._to_host(tr._infer_audio(tr.prepare_batch(clips)[0]))
+    up_len, low_len = arrays[4].astype(int), arrays[5].astype(int)
+    return float(np.maximum(up_len.max(0), low_len.max(0)).mean())
+
+
+def phase_early_exit(Transcriber, state_dict, random_state_dict, cfg, batch,
+                     kernel):
+    """(k4) A Transcriber of (k3)'s state dict on its clips tiled to a
+    batch of N_CLIPS: one transcribe_batch (the path's; its results held
+    against the targets), then clips/s in turns with the random-weight
+    Transcriber of (e) on the same clips, and the mean decode steps a bar
+    of each. Returns the kernel's launches after the path call."""
+    audio = batch["audio"]
+    clips = [audio[i % len(audio)] for i in range(N_CLIPS)]
+    trained = Transcriber(state_dict, cfg, device="cuda")
+    results = trained.transcribe_batch(clips)
+    launches = kernel.launches
+    matches = total = 0
+    for i, bars in enumerate(results[:len(audio)]):
+        for m, (_, _, lower, upper) in enumerate(bars):
+            for staff, got in (("upper", upper), ("lower", lower)):
+                n = int(batch[f"{staff}_lengths"][i, m])
+                ref = list(batch[staff][i, m, :n])
+                total += n
+                matches += sum(int(a == b) for a, b in zip(got, ref))
+    print(f"(k4) the memorized Transcriber's tokens equal to the targets: "
+          f"{matches}/{total}")
+    rand = Transcriber(random_state_dict, cfg, device="cuda")
+    turns = {"memorized": [], "random": []}
+    for name, tr in (("memorized", trained), ("random", rand),
+                     ("random", rand), ("memorized", trained)):
+        t0 = time.monotonic()
+        tr.transcribe_batch(clips)
+        turns[name].append(time.monotonic() - t0)
+    rate = {k: N_CLIPS / float(np.median(v)) for k, v in turns.items()}
+    steps = {"memorized": decode_steps_a_bar(trained, clips),
+             "random": decode_steps_a_bar(rand, clips)}
+    print(f"(k4) transcribe_batch of {N_CLIPS} clips ({len(audio)} memorized "
+          f"clips tiled) in turns memorized, random, random, memorized: "
+          + ", ".join(f"{k} {[round(t, 3) for t in v]} s ({rate[k]:.2f} "
+                      f"clips/s, {steps[k]:.1f} decode steps a bar)"
+                      for k, v in turns.items())
+          + f"; early exit / cap-bound clips/s "
+          f"{rate['memorized'] / rate['random']:.3f}")
+    check(steps["memorized"] < max(cfg.max_length),
+          "(k4) the memorized model exits early")
+    return launches
+
+
+def phase_synth(torch, tmodels, tstep, tvqt, Transcriber, random_state_dict,
+                kernel):
+    """(k) The synth path at full width: (k1) the corpus, (k2) its stored
+    spectrograms against the VQT kernel, then the path with the kernel's
+    launch count zeroed first: (k3) memorize, (k4) the memorized
+    Transcriber's batch; then (k4)'s turns. Returns the path's launches."""
+    import tempfile
+
+    from piano_a2s_tpu_torch.data import synth
+
+    cfg = tmodels.ModelConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        synth.write_corpus(tmp, "train", K_CORPUS_SONGS, seed=K_SEED,
+                           frontend="direct", save_audio=True)
+        corpus_s = (time.monotonic() - t0) / K_CORPUS_SONGS
+        short = os.path.join(tmp, "memorize", "0")
+        short_s = write_short_songs(short, K_CLIPS, K_SEED)
+        print(f"(k1) write_corpus: {K_CORPUS_SONGS} songs, {corpus_s:.3f} "
+              f"host s a song; {K_CLIPS} songs of {K_UPPER_NOTES} upper and "
+              f"{K_LOWER_NOTES} lower notes a bar, {short_s:.3f} host s a "
+              f"song (direct host VQT, float32 audio)")
+        phase_synth_features(torch, tvqt,
+                             [os.path.join(tmp, "train", "0"), short])
+        batch = memorize_batch(short, K_CLIPS, cfg)
+    gc.collect()
+    kernel.launches = 0
+    state_dict, steps, evals = phase_memorize(torch, tmodels, tstep, tvqt,
+                                              batch, cfg)
+    launches = phase_early_exit(Transcriber, state_dict, random_state_dict,
+                                cfg, batch, kernel)
+    print(f"(k) vqt kernel launches over (k3) and (k4)'s path call: "
+          f"{launches} (expected {steps + evals + 1}: one a train step, a "
+          f"greedy decode and a transcribe_batch)")
+    check(launches == steps + evals + 1, "(k) one vqt launch per train step, "
+          "greedy decode and transcribe_batch")
+    return launches
+
+
 def main():
     t_main = time.monotonic()
     import torch
@@ -1295,11 +1550,20 @@ def main():
                                           vqt_magnitude_cuda)
     print(f"(j2) vqt kernel launches over (j2): {launches['train_dp']}; "
           f"(j) took {time.monotonic() - t_j:.1f} s")
+
+    # (k) the synth path, zeroing the counts just before (k3).
+    gc.collect()
+    t_k = time.monotonic()
+    launches["synth"] = phase_synth(torch, tmodels, tstep, tvqt, Transcriber,
+                                    state_dict, vqt_magnitude_cuda)
+    print(f"(k) took {time.monotonic() - t_k:.1f} s")
     check("jax" not in sys.modules, "no jax imported")
     check(not any(m == "piano_a2s_tpu" or m.startswith("piano_a2s_tpu.")
                   for m in sys.modules), "nothing of the JAX package imported")
 
     bound_ms, bound_by = vqt_bound(N_CLIPS, CLIP_SAMPLES)
+    print(f"chip_smoke: every phase passed in {time.monotonic() - t_main:.1f}"
+          f" s")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "vqt_mag", "route": "cuda",

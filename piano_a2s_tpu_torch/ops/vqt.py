@@ -8,6 +8,11 @@ magnitude, then a per-clip log compression.
 ``vqt_magnitude`` dispatches on the audio's device: a CPU tensor takes the
 plain PyTorch version (``vqt_magnitude_torch``), a CUDA tensor launches the
 hand-written kernel (``ops.vqt_cuda``). There is no fallback between them.
+
+``vqt_host``, ``log_compress_host`` and ``get_vqt_host`` are the numpy
+twin in float64 that the offline feature passes (``data/render.py``,
+``data/asap.py``) and the synthetic corpus (``data/synth.py``) write their
+spectrograms with; they build or load no kernel.
 """
 
 from __future__ import annotations
@@ -151,3 +156,38 @@ def get_vqt(y: torch.Tensor, kernels: Optional[tuple] = None,
     if kernels is None:
         kernels = filters(cfg, y.device)
     return log_compress(vqt_magnitude(y, kernels, cfg))
+
+
+# ---------------------------------------------------------------------------
+# Host (numpy) twin: the offline feature passes' spectrograms
+# ---------------------------------------------------------------------------
+
+def vqt_host(y: np.ndarray, cfg: VQTConfig = VQTConfig()) -> np.ndarray:
+    """Numpy implementation with identical math (float64)."""
+    cos_k, sin_k = build_kernels(cfg)
+    w = cfg.window_size
+    y_pad = np.pad(np.asarray(y, np.float64), (w // 2, w // 2))
+    n = num_frames(len(y), cfg)
+    idx = np.arange(n)[:, None] * cfg.hop_length + np.arange(w)[None, :]
+    frames = y_pad[idx]
+    re = frames @ cos_k.astype(np.float64)
+    im = frames @ sin_k.astype(np.float64)
+    return np.sqrt(re ** 2 + im ** 2)
+
+
+def log_compress_host(mag: np.ndarray, amin: float = 1e-5,
+                      top_db: float = 80.0) -> np.ndarray:
+    """Host twin of ``log_compress`` for one clip (db/top_db + 1, ref=max;
+    reference: utilities.py:253), float32. Shared by the direct-form host
+    path and the librosa-algorithm oracle (``ops/vqt_oracle.py``)."""
+    power = np.maximum(mag, amin) ** 2
+    db = 10.0 * (np.log10(power) - np.log10(power.max()))
+    db = np.maximum(db, db.max() - top_db)
+    return (db / top_db + 1.0).astype(np.float32)
+
+
+def get_vqt_host(y: np.ndarray, cfg: VQTConfig = VQTConfig(),
+                 amin: float = 1e-5, top_db: float = 80.0) -> np.ndarray:
+    """One clip's audio (L,) -> log-VQT spectrogram (1 + L // hop, n_bins),
+    float32."""
+    return log_compress_host(vqt_host(y, cfg), amin, top_db)
