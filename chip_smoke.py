@@ -93,6 +93,21 @@ Phases, each of which raises on failure:
       first and last loss and the match. (k4) a Transcriber of the
       memorized weights on the clips tiled to 16, in turns with the
       random-weight Transcriber of (e): clips/s and decode steps a bar.
+      (k)'s memorized clips are the corpus's test split, which (l) reads.
+  (l) the offline evaluation path at full width, with (k3)'s weights (no
+      second model is trained). (l1) a Trainer on the card (configs/
+      pretrain.yaml, input_features=audio, batch 4) runs its test stage,
+      Trainer.evaluate, over (k)'s 4 clips from audio: one result JSON per
+      clip; prints the stage seconds, WER and F1. (l2) a copy of the
+      records with each prediction replaced by the clip's target through
+      the port's evaluate command in this process (cli.evaluate.main,
+      native MV2H and MUSTER): every clip must score MV2H 1.0 on all six
+      keys with no export error, and MUSTER 11 zeros. (l3) the same
+      command on (l1)'s records: prints the export errors, each clip's
+      and the mean MV2H components, the 4-way mean, the 11 MUSTER rates
+      and the host seconds a clip of the export, MV2H and MUSTER; the
+      summary must count every clip with an MV2H JSON, with at most 1
+      export error and a mean MV2H of at least 0.5.
 
 Each main path has its own launch counts, zeroed just before it and read
 just after it: serving over (e) and (f), training over (g2), the harness
@@ -101,9 +116,10 @@ batch and transcribe call, bf16 serving over (i1)'s batch and request,
 bf16 training over (i2), once per step, mesh serving over one call of each
 mesh Transcriber of (j1), once per shard, and data-parallel training over
 (j2)'s world-size-1 step and eval and the ranks' steps (which print their
-counts), once per rank per microbatch, and the synth path over (k3) and
-(k4)'s first batch, once per train step, greedy decode and batch. Each
-path must have launched every kernel it runs. The line before the last
+counts), once per rank per microbatch, the synth path over (k3) and
+(k4)'s first batch, once per train step, greedy decode and batch, and the
+evaluation path over (l1)'s test stage, once per eval batch. Each path
+must have launched every kernel it runs. The line before the last
 holds the kernels' JSON record (``launches`` is the sum over the paths,
 ``launches_by_path`` each path's count); the last line is the result
 object.
@@ -159,6 +175,10 @@ DP_RANK_SCRIPT = os.path.abspath(__file__)  # (j2)'s ranks run this file
 K_SEED, K_CORPUS_SONGS, K_CLIPS = 11, 2, 4
 K_UPPER_NOTES, K_LOWER_NOTES = (2, 4), (1, 3)
 K_TF, K_EVAL_EVERY, K_MATCH, K_MAX_STEPS = 1.0, 10, 0.8, 180
+# (l): the test stage's batch (all of (k)'s memorized clips in one), and
+# what the memorized model's evaluation must reach: export errors, mean
+# MV2H (the identity copy must score 1.0).
+L_BATCH, L_MAX_ERRORS, L_MIN_MV2H = 4, 1, 0.5
 # H100 SXM data sheet: HBM 3.35 TB/s; dense TF32 tensor cores 494.7 TFLOP/s.
 HBM_BYTES_PER_S, TF32_FLOP_PER_S = 3.35e12, 494.7e12
 
@@ -972,9 +992,10 @@ def phase_train_dp(torch, tmodels, tstep, tvqt, kernel):
 
 
 class Spy:
-    """Wraps methods on the training path so that each call records its
-    phase, its seconds and what ``probe(obj, args, kwargs, result)`` reads;
-    the methods themselves run unchanged. ``undo`` restores them."""
+    """Wraps methods of a class (or functions of a module) so that each
+    call records its phase, its seconds and what ``probe(obj, args, kwargs,
+    result)`` reads (``obj`` is a function's first argument); they
+    themselves run unchanged. ``undo`` restores them."""
 
     def __init__(self):
         self.calls = {}
@@ -1388,30 +1409,29 @@ def phase_early_exit(Transcriber, state_dict, random_state_dict, cfg, batch,
 
 
 def phase_synth(torch, tmodels, tstep, tvqt, Transcriber, random_state_dict,
-                kernel):
-    """(k) The synth path at full width: (k1) the corpus, (k2) its stored
-    spectrograms against the VQT kernel, then the path with the kernel's
-    launch count zeroed first: (k3) memorize, (k4) the memorized
-    Transcriber's batch; then (k4)'s turns. Returns the path's launches."""
-    import tempfile
-
+                kernel, corpus):
+    """(k) The synth path at full width: (k1) the corpus under ``corpus``,
+    whose K_CLIPS short songs make its test split ({corpus}/test/0, which
+    (l) evaluates), (k2) its stored spectrograms against the VQT kernel,
+    then the path with the kernel's launch count zeroed first: (k3)
+    memorize, (k4) the memorized Transcriber's batch; then (k4)'s turns.
+    Returns (the path's launches, (k3)'s state dict)."""
     from piano_a2s_tpu_torch.data import synth
 
     cfg = tmodels.ModelConfig()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.monotonic()
-        synth.write_corpus(tmp, "train", K_CORPUS_SONGS, seed=K_SEED,
-                           frontend="direct", save_audio=True)
-        corpus_s = (time.monotonic() - t0) / K_CORPUS_SONGS
-        short = os.path.join(tmp, "memorize", "0")
-        short_s = write_short_songs(short, K_CLIPS, K_SEED)
-        print(f"(k1) write_corpus: {K_CORPUS_SONGS} songs, {corpus_s:.3f} "
-              f"host s a song; {K_CLIPS} songs of {K_UPPER_NOTES} upper and "
-              f"{K_LOWER_NOTES} lower notes a bar, {short_s:.3f} host s a "
-              f"song (direct host VQT, float32 audio)")
-        phase_synth_features(torch, tvqt,
-                             [os.path.join(tmp, "train", "0"), short])
-        batch = memorize_batch(short, K_CLIPS, cfg)
+    t0 = time.monotonic()
+    synth.write_corpus(corpus, "train", K_CORPUS_SONGS, seed=K_SEED,
+                       frontend="direct", save_audio=True)
+    corpus_s = (time.monotonic() - t0) / K_CORPUS_SONGS
+    short = os.path.join(corpus, "test", "0")
+    short_s = write_short_songs(short, K_CLIPS, K_SEED)
+    print(f"(k1) write_corpus: {K_CORPUS_SONGS} songs, {corpus_s:.3f} "
+          f"host s a song; {K_CLIPS} songs of {K_UPPER_NOTES} upper and "
+          f"{K_LOWER_NOTES} lower notes a bar, {short_s:.3f} host s a "
+          f"song (direct host VQT, float32 audio)")
+    phase_synth_features(torch, tvqt,
+                         [os.path.join(corpus, "train", "0"), short])
+    batch = memorize_batch(short, K_CLIPS, cfg)
     gc.collect()
     kernel.launches = 0
     state_dict, steps, evals = phase_memorize(torch, tmodels, tstep, tvqt,
@@ -1423,6 +1443,157 @@ def phase_synth(torch, tmodels, tstep, tvqt, Transcriber, random_state_dict,
           f"greedy decode and a transcribe_batch)")
     check(launches == steps + evals + 1, "(k) one vqt launch per train step, "
           "greedy decode and transcribe_batch")
+    return launches, state_dict
+
+
+def run_evaluate(label, configs, corpus, out):
+    """The port's evaluate command in this process on ``out``'s test
+    results, native MV2H and MUSTER; its lines printed under ``label``.
+    Returns the host seconds a clip of the export, the MV2H and the
+    MUSTER scoring."""
+    import contextlib
+
+    import piano_a2s_tpu_torch.train.evaluate_offline as toffline
+    import piano_a2s_tpu_torch.train.muster as tmuster
+    import piano_a2s_tpu_torch.train.mv2h as tmv2h
+    from piano_a2s_tpu_torch.cli import evaluate as tevaluate
+
+    spy = Spy()
+    stages = {"export": (toffline, "export_target"),
+              "mv2h": (tmv2h, "run_native_mv2h_pair"),
+              "muster": (tmuster, "native_muster_pair")}
+    for module, name in stages.values():
+        spy.wrap(module, name)
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            rc = tevaluate.main([
+                os.path.join(configs, "pretrain.yaml"),
+                f"workspace={os.path.dirname(out)}", f"output_folder={out}",
+                f"feature_folder={corpus}", "--mv2h-engine", "native",
+                "--muster", "--muster-engine", "native"])
+    finally:
+        spy.undo()
+    for line in text.getvalue().splitlines():
+        print(f"{label} evaluate: {line.replace(out, '<out>')}")
+    check(rc == 0, f"{label} the evaluate command's exit code")
+    n = len(os.listdir(os.path.join(out, "results", "test")))
+    return {stage: sum(c[1] for c in spy.of(f"{module.__name__}.{name}")) / n
+            for stage, (module, name) in stages.items()}
+
+
+def read_scores(out):
+    """(export errors, per-clip MV2H dicts, the synthetic summary of the
+    test split, the native MUSTER rates and their pair count) of an
+    evaluated output folder."""
+    import piano_a2s_tpu_torch.train.evaluate_offline as toffline
+
+    with open(os.path.join(out, "results", "errors.txt")) as f:
+        errors = f.read().split()
+    mv2h_dir = os.path.join(out, "results", "mv2h")
+    clips = {}
+    for name in sorted(os.listdir(mv2h_dir)):
+        with open(os.path.join(mv2h_dir, name)) as f:
+            clips[name[:-len("_mv2h.json")]] = json.load(f)
+    summary = toffline.summarize_syn_mv2h(out, split="test")
+    ers, pairs = toffline.get_muster_er(out, engine="native", split="test")
+    return errors, clips, summary, ers, pairs
+
+
+def phase_evaluate(torch, corpus, state_dict, kernel):
+    """(l) The offline evaluation path at full width: (l1) the Trainer's
+    test stage on the card over (k)'s test split from audio with (k3)'s
+    weights (the VQT kernel once an eval batch; its launch count zeroed
+    just before), (l2) the evaluate command on a copy of its records whose
+    predictions are the targets, (l3) on the records themselves. Returns
+    the path's launches."""
+    import pickle
+    import tempfile
+
+    from piano_a2s_tpu_torch.config import load_experiment
+    from piano_a2s_tpu_torch.data.datasets import (DataLoader,
+                                                   SyntheticTestDataset)
+    from piano_a2s_tpu_torch.train.harness import Trainer
+    from piano_a2s_tpu_torch.train.muster import MUSTER_COMPONENTS
+    from piano_a2s_tpu_torch.train.mv2h import MV2H_KEYS
+
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs")
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "run")
+        exp = load_experiment(os.path.join(configs, "pretrain.yaml"), [
+            f"workspace={tmp}", "midi_syn=score", f"feature_folder={corpus}",
+            f"output_folder={run}", "input_features=audio",
+            f"batch_size={L_BATCH}"])
+        t0 = time.monotonic()
+        trainer = Trainer(exp, device="cuda", state_dict=state_dict)
+        test = SyntheticTestDataset(corpus, "test", versions=[0],
+                                    **exp.dataset_kwargs())
+        loader = DataLoader(test, exp.batch_size)
+        build_s = time.monotonic() - t0
+        kernel.launches = 0
+        t0 = time.monotonic()
+        stats = trainer.evaluate(loader)
+        stage_s = time.monotonic() - t0
+        launches = kernel.launches
+        results = os.path.join(run, "results", "test")
+        records = sorted(os.listdir(results))
+        n_batches = -(-len(test) // L_BATCH)
+        print(f"(l1) Trainer.evaluate on the card over {len(test)} clips "
+              f"from audio, batch {L_BATCH}: {stage_s:.3f} s (Trainer and "
+              f"loader built in {build_s:.3f} s); WER {stats['WER']:.4f} "
+              f"(upper {stats['WER_upper']:.4f}, lower "
+              f"{stats['WER_lower']:.4f}), key F1 {stats['key_f1']:.4f}, "
+              f"time-signature F1 {stats['time_f1']:.4f}; vqt kernel "
+              f"launches {launches} over {n_batches} eval batch(es); "
+              f"records {records}")
+        check(len(test) == K_CLIPS and len(records) == K_CLIPS,
+              "(l1) one result JSON per clip")
+        check(launches == n_batches, "(l1) one vqt launch per eval batch")
+
+        # (l2) Identity: each prediction replaced by the clip's own target.
+        ident = os.path.join(tmp, "identity")
+        os.makedirs(os.path.join(ident, "results", "test"))
+        for name in records:
+            with open(os.path.join(results, name)) as f:
+                record = json.load(f)
+            with open(record["target_path"], "rb") as f:
+                record["pred"] = pickle.load(f)
+            with open(os.path.join(ident, "results", "test", name),
+                      "w") as f:
+                json.dump(record, f, indent=2)
+        ident_s = run_evaluate("(l2)", configs, corpus, ident)
+        errors, clips, (mean, four, n), ers, pairs = read_scores(ident)
+        print(f"(l2) identity: export errors {len(errors)}, {n} clips "
+              f"summarized, MV2H {mean}, MUSTER {ers.tolist()} over {pairs} "
+              f"pairs; host s a clip {ident_s}")
+        check(not errors and n == K_CLIPS and len(clips) == K_CLIPS
+              and all(c[k] == 1.0 for c in clips.values() for k in MV2H_KEYS),
+              "(l2) every clip's prediction equal to its target scores MV2H "
+              "1.0 on every key")
+        check(pairs == K_CLIPS and len(ers) == 11 and not ers.any(),
+              "(l2) MUSTER all zeros")
+
+        # (l3) The memorized model's own predictions.
+        model_s = run_evaluate("(l3)", configs, corpus, run)
+        errors, clips, (mean, four, n), ers, pairs = read_scores(run)
+        for clip_id, scores in clips.items():
+            print(f"(l3) {clip_id}: " + ", ".join(
+                f"{k} {scores[k]:.4f}" for k in MV2H_KEYS))
+        print(f"(l3) memorized model: export errors {len(errors)} of "
+              f"{K_CLIPS} {errors}; mean over {n} clips "
+              + ", ".join(f"{k} {mean[k]:.4f}" for k in MV2H_KEYS)
+              + f"; 4-way mean {four:.4f}; MUSTER over {pairs} pairs "
+              + ", ".join(f"{c} {e:.4f}" for c, e in
+                          zip(MUSTER_COMPONENTS, ers))
+              + "; host s a clip " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in model_s.items()))
+        check(n == len(clips), "(l3) the summary counts every clip with an "
+              "MV2H JSON")
+        check(len(errors) <= L_MAX_ERRORS,
+              f"(l3) at most {L_MAX_ERRORS} export error(s)")
+        check(mean["MV2H"] >= L_MIN_MV2H,
+              f"(l3) mean MV2H {mean['MV2H']:.4f} at least {L_MIN_MV2H}")
     return launches
 
 
@@ -1551,12 +1722,21 @@ def main():
     print(f"(j2) vqt kernel launches over (j2): {launches['train_dp']}; "
           f"(j) took {time.monotonic() - t_j:.1f} s")
 
-    # (k) the synth path, zeroing the counts just before (k3).
+    # (k) the synth path, zeroing the counts just before (k3); (l) the
+    # evaluation path on (k)'s test split with (k3)'s weights, zeroing them
+    # just before the test stage.
+    import tempfile
     gc.collect()
-    t_k = time.monotonic()
-    launches["synth"] = phase_synth(torch, tmodels, tstep, tvqt, Transcriber,
-                                    state_dict, vqt_magnitude_cuda)
-    print(f"(k) took {time.monotonic() - t_k:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="synth_corpus_") as corpus:
+        t_k = time.monotonic()
+        launches["synth"], memorized_state = phase_synth(
+            torch, tmodels, tstep, tvqt, Transcriber, state_dict,
+            vqt_magnitude_cuda, corpus)
+        print(f"(k) took {time.monotonic() - t_k:.1f} s")
+        t_l = time.monotonic()
+        launches["evaluate"] = phase_evaluate(torch, corpus, memorized_state,
+                                              vqt_magnitude_cuda)
+        print(f"(l) took {time.monotonic() - t_l:.1f} s")
     check("jax" not in sys.modules, "no jax imported")
     check(not any(m == "piano_a2s_tpu" or m.startswith("piano_a2s_tpu.")
                   for m in sys.modules), "nothing of the JAX package imported")

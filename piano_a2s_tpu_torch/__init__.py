@@ -9,9 +9,12 @@ NVIDIA GPU (Hopper):
 - ``models``: the ScoreTranscription model as ``nn.Module``s (greedy and
   teacher-forced forwards), and the weight converters.
 - ``train``: the losses and the train/eval steps (Adadelta, clipping,
-  gradient accumulation, the audio frontend inside the step).
+  gradient accumulation, the audio frontend inside the step), the Trainer,
+  and the offline evaluation (the native MV2H and MUSTER scorers, host
+  only).
 - ``infer``, ``serve``, ``cli``: the Transcriber, the HTTP server and the
-  transcribe command.
+  commands (transcribe, pretrain, finetune, evaluate, prepare_data,
+  import_checkpoint).
 - ``symbolic``, ``data``, ``utils.audio``, ``config``: the host-side code
   the port uses (vocabulary, score export, WAV I/O, experiment configs),
   copied from the JAX package's modules of the same names.
