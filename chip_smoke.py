@@ -108,6 +108,31 @@ Phases, each of which raises on failure:
       and the host seconds a clip of the export, MV2H and MUSTER; the
       summary must count every clip with an MV2H JSON, with at most 1
       export error and a mean MV2H of at least 0.5.
+  (m) the score-to-corpus path at full width. (m1) the four real-score
+      excerpts of tests/fixtures/kern (the first two renamed into the test
+      and valid split lists) through the port's prepare_data command in
+      this process: preprocess, split, midi (the native EPR engine), clean,
+      render and spectrograms over 4 versions (cli.pretrain with midi_syn
+      epr reads versions 0-3 of valid and test), with a stand-in for
+      FluidSynth first on PATH (additive synthesis in a Python script, a
+      timbre seeded from each soundfont's name; no synthesizer or soundfont
+      is installed). Checks the native kern library is the port's own build
+      and equal to its Python twins on every excerpt (both staves, tiefix,
+      every transposition of FEASIBLE_TRANSPOSES[0]); each chunk routed to
+      its split; clean_files removed exactly what breaks its rules; every
+      MIDI with its target, one WAV (three for test), a spectrogram and an
+      int16 audio file; every target 5 bars of (key, time signature,
+      lower, upper). Prints the files per split and version and the host
+      seconds of each stage. (m2) every clip through get_vqt on the card
+      against its stored host spectrogram over its own frames, on the
+      float32 samples the feature pass used: within 1e-4 or, failing that,
+      at most twice the plain f32 version's error (the kernel's contract of
+      (c)); and on the stored int16 audio, which training reads: at most
+      1e-4 beyond the plain f32 version's error. (m3) cli.pretrain
+      (configs/pretrain.yaml, input_features=audio, batch 4, one epoch,
+      --profile) on the corpus with its valid and test stages: losses
+      finite, one result JSON per valid and test clip; prints seconds per
+      train step, the bucketed caps and peak device memory.
 
 Each main path has its own launch counts, zeroed just before it and read
 just after it: serving over (e) and (f), training over (g2), the harness
@@ -118,7 +143,8 @@ mesh Transcriber of (j1), once per shard, and data-parallel training over
 (j2)'s world-size-1 step and eval and the ranks' steps (which print their
 counts), once per rank per microbatch, the synth path over (k3) and
 (k4)'s first batch, once per train step, greedy decode and batch, and the
-evaluation path over (l1)'s test stage, once per eval batch. Each path
+evaluation path over (l1)'s test stage, once per eval batch, and the
+prepare path over (m3)'s epoch, once per train and eval batch. Each path
 must have launched every kernel it runs. The line before the last
 holds the kernels' JSON record (``launches`` is the sum over the paths,
 ``launches_by_path`` each path's count); the last line is the result
@@ -179,6 +205,60 @@ K_TF, K_EVAL_EVERY, K_MATCH, K_MAX_STEPS = 1.0, 10, 0.8, 180
 # what the memorized model's evaluation must reach: export errors, mean
 # MV2H (the identity copy must score 1.0).
 L_BATCH, L_MAX_ERRORS, L_MIN_MV2H = 4, 1, 0.5
+# (m): the real-score excerpts (the first two renamed into the test and the
+# valid split), the versions prepared and (m3)'s batch. cli.pretrain with
+# midi_syn=epr reads versions 0-3 of valid and test, and xml_to_midi renders
+# only the versions it is given: the corpus needs 4.
+M_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "fixtures", "kern")
+M_VERSIONS, M_BATCH = 4, 4
+# (m1): a stand-in for FluidSynth, written into (m)'s temporary folder and
+# put first on PATH (no synthesizer or soundfont is installed there).
+FLUIDSYNTH_STANDIN = '''#!{python}
+"""A stand-in for `fluidsynth -ni <sf2> <mid> -F <wav> -r <rate>`: each
+note of the MIDI (read with the port's symbolic/midi_io.py) rendered by
+additive synthesis, with a timbre seeded from the soundfont's file name,
+written as a 16-bit mono WAV at <rate> (at most 12 s)."""
+import os, sys, wave, zlib
+sys.path.insert(0, {repo!r})
+import numpy as np
+from piano_a2s_tpu_torch.symbolic.midi_io import read_midi
+
+args = sys.argv[1:]
+assert len(args) == 7 and args[0] == "-ni" and args[3] == "-F" \\
+    and args[5] == "-r", args
+font, midi, wav, rate = args[1], args[2], args[4], int(args[6])
+assert font.endswith(".sf2"), font
+assert open(midi, "rb").read(4) == b"MThd", midi
+rng = np.random.RandomState(zlib.crc32(os.path.basename(font).encode()))
+k = np.arange(1, 9)
+amps = rng.uniform(0.3, 1.0, len(k)) / k ** rng.uniform(0.7, 1.5)
+decay = rng.uniform(0.4, 1.5)  # seconds, at middle C
+notes = read_midi(midi).notes()
+end = max((off for _, off, _, _ in notes), default=0.0)
+out = np.zeros(int(min(end + 0.25, 12.0) * rate))
+for on, off, pitch, vel in notes:
+    start = int(on * rate)
+    n = min(int((off - on + 0.05) * rate), len(out) - start)
+    if n <= 0:
+        continue
+    t = np.arange(n) / rate
+    f0 = 440.0 * 2 ** ((pitch - 69) / 12)
+    use = k * f0 < rate / 2
+    tone = (amps[use, None] * np.sin(2 * np.pi * f0 * k[use, None] * t)
+            ).sum(0)
+    env = np.minimum(1.0, t / 0.005) * np.exp(
+        -t / (decay * np.sqrt(261.63 / f0)))
+    env *= np.minimum(1.0, (n - np.arange(n)) / (0.05 * rate))
+    out[start:start + n] += vel / 127.0 * tone * env
+peak = np.abs(out).max()
+with wave.open(wav, "wb") as w:
+    w.setnchannels(1)
+    w.setsampwidth(2)
+    w.setframerate(rate)
+    w.writeframes((0.8 * 32767 * out / max(peak, 1e-9)).astype("<i2")
+                  .tobytes())
+'''
 # H100 SXM data sheet: HBM 3.35 TB/s; dense TF32 tensor cores 494.7 TFLOP/s.
 HBM_BYTES_PER_S, TF32_FLOP_PER_S = 3.35e12, 494.7e12
 
@@ -1597,6 +1677,381 @@ def phase_evaluate(torch, corpus, state_dict, kernel):
     return launches
 
 
+def m_kern_folder(kern):
+    """(m1) The real-score excerpts copied into ``kern``, the first renamed
+    to the first song of the port's test_split.txt and the second to that
+    of valid_split.txt. Returns {song: split}."""
+    from piano_a2s_tpu_torch.data.datasets import load_split_list
+    names = sorted(f for f in os.listdir(M_FIXTURES) if f.endswith(".krn"))
+    check(len(names) == 4, "(m1) four real-score excerpts")
+    routes = [(load_split_list("test_split.txt")[1], "test"),
+              (load_split_list("valid_split.txt")[1], "valid")]
+    os.makedirs(kern)
+    songs = {}
+    for i, name in enumerate(names):
+        song, split = routes[i] if i < len(routes) else (name[:-4], "train")
+        with open(os.path.join(M_FIXTURES, name), "rb") as f, \
+                open(os.path.join(kern, f"{song}.krn"), "wb") as g:
+            g.write(f.read())
+        songs[song] = split
+    return songs
+
+
+def phase_native_tools():
+    """(m1) The port's native kern library is built and loaded, and gives
+    its Python twins' strings on every excerpt: both staves extracted, the
+    ties repaired and every transposition of FEASIBLE_TRANSPOSES[0]."""
+    from piano_a2s_tpu_torch.data.render import FEASIBLE_TRANSPOSES
+    from piano_a2s_tpu_torch.symbolic import native
+
+    t0 = time.monotonic()
+    check(native.native_available(), "(m1) the native kern library loads")
+    path = native._load_lib()._name
+    check(os.path.dirname(path) == native.BUILD_DIR,
+          "(m1) the library is the port's own build")
+    build_s = time.monotonic() - t0
+    n = 0
+    for name in sorted(os.listdir(M_FIXTURES)):
+        if not name.endswith(".krn"):
+            continue
+        with open(os.path.join(M_FIXTURES, name), encoding="iso-8859-1") as f:
+            text = f.read()
+        pairs = [(native.extract_spine(text, s),
+                  native._py_extract_spine(text, s)) for s in (1, 2)]
+        pairs.append((native.tiefix_kern(text), native._py_tiefix(text)))
+        pairs += [(native.transpose_kern(text, str(iv)),
+                   native._py_transpose(text, str(iv)))
+                  for iv in FEASIBLE_TRANSPOSES[0]]
+        for got, want in pairs:
+            check(got == want, f"(m1) native kern tool equal to its twin on "
+                               f"{name}")
+        n += len(pairs)
+    print(f"(m1) native kern tools: {os.path.basename(path)} built and "
+          f"loaded in {build_s:.2f} s; {n} calls on 4 excerpts equal to the "
+          f"Python twins")
+
+
+def clean_rule_breakers(feature_folder, versions):
+    """The MIDI files (relative paths) that clean_files' rules remove: no
+    target, longer than 12 s, a pitch outside 21..108, or a bar's key or
+    time signature out of range."""
+    import pickle
+
+    from piano_a2s_tpu_torch.data.datasets import load_time_signatures
+    from piano_a2s_tpu_torch.symbolic.midi_io import read_midi
+
+    time_sigs = load_time_signatures()
+    bad = set()
+    for split in ("train", "valid", "test"):
+        for v in versions:
+            folder = os.path.join(feature_folder, split, str(v))
+            midi_dir = os.path.join(folder, "midi")
+            if not os.path.isdir(midi_dir):
+                continue
+            for midi in sorted(os.listdir(midi_dir)):
+                rel = os.path.join(split, str(v), "midi", midi)
+                target = os.path.join(folder, "target", f"{midi[:-4]}.pkl")
+                if not os.path.exists(target):
+                    bad.add(rel)
+                    continue
+                notes = read_midi(os.path.join(midi_dir, midi)).notes()
+                with open(target, "rb") as f:
+                    bars = pickle.load(f)
+                if max((n[1] for n in notes), default=0.0) > 12 or any(
+                        not 21 <= n[2] <= 108 for n in notes) or any(
+                        not -6 <= b[0] <= 7 or b[1] not in time_sigs
+                        for b in bars):
+                    bad.add(rel)
+    return bad
+
+
+def corpus_files(corpus, versions):
+    """{(split, version): {sub: sorted names}} of the synth layout."""
+    out = {}
+    for split in ("train", "valid", "test"):
+        for v in versions:
+            folder = os.path.join(corpus, split, str(v))
+            out[split, v] = {
+                sub: sorted(os.listdir(os.path.join(folder, sub)))
+                if os.path.isdir(os.path.join(folder, sub)) else []
+                for sub in ("target", "midi", "wav", "spectrogram", "audio")}
+    return out
+
+
+def phase_prepare_corpus(tmp):
+    """(m1) The score side of the data preparation through the port's
+    command in this process: the four excerpts -> preprocess, split, midi
+    (the native EPR engine), clean, render (the stand-in synthesizer),
+    spectrograms, M_VERSIONS versions. Returns (corpus folder, the files of
+    each split and version)."""
+    import contextlib
+    import pickle
+
+    import piano_a2s_tpu_torch.cli.prepare_data as tprepare
+    from piano_a2s_tpu_torch.data import render
+    from piano_a2s_tpu_torch.data.datasets import load_time_signatures
+    from piano_a2s_tpu_torch.symbolic.vocab import LabelsMultiple
+
+    phase_native_tools()
+    songs = m_kern_folder(os.path.join(tmp, "kern"))
+    corpus = os.path.join(tmp, "feature.epr")
+    bindir = os.path.join(tmp, "bin")
+    os.makedirs(bindir)
+    synth = os.path.join(bindir, "fluidsynth")
+    with open(synth, "w") as f:
+        f.write(FLUIDSYNTH_STANDIN.format(
+            python=sys.executable,
+            repo=os.path.dirname(os.path.abspath(__file__))))
+    os.chmod(synth, 0o755)
+    versions = list(range(M_VERSIONS))
+    predicted = {}
+    spy = Spy()
+    spy.wrap(tprepare, "_pool_map",
+             lambda work, a, k, out: work.func.__name__)
+    spy.wrap(render, "preprocess_kern")
+    spy.wrap(render, "xml_to_midi", lambda *_: predicted.update(
+        bad=clean_rule_breakers(corpus, versions),
+        before=corpus_files(corpus, versions)))
+    spy.wrap(render, "clean_files", lambda v, a, k, out: out)
+    path = os.environ["PATH"]
+    os.environ["PATH"] = f"{bindir}{os.pathsep}{path}"
+    text = io.StringIO()
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(text):
+            rc = tprepare.main([
+                "syn", os.path.join(os.path.dirname(os.path.abspath(
+                    __file__)), "configs", "pretrain.yaml"),
+                "preprocess", "split", "midi", "clean", "render",
+                "spectrograms", f"workspace={tmp}", "midi_syn=epr",
+                "epr_engine=native", f"train_versions={M_VERSIONS}",
+                f"feature_folder={corpus}",
+                f"soundfont_folder={os.path.join(tmp, 'soundfonts')}",
+                "--kern-folder", os.path.join(tmp, "kern"),
+                "--xml-folder", os.path.join(tmp, "xml")])
+    finally:
+        os.environ["PATH"] = path
+        spy.undo()
+    seconds = time.monotonic() - t0
+    for line in text.getvalue().splitlines():
+        print(f"(m1) prepare_data: {line.replace(tmp, '<tmp>')}")
+    check(rc == 0, "(m1) prepare_data's exit code")
+    print("(m1) the synthesizer was a stand-in for FluidSynth (additive "
+          "synthesis, a timbre seeded from each soundfont's name): no "
+          "FluidSynth or soundfont is installed")
+
+    files = corpus_files(corpus, versions)
+    print("(m1) per split and version, (chunks with targets, MIDI files, "
+          "WAVs, spectrograms): " + ", ".join(
+              f"{s}/{v} ({len(f['target'])}, {len(f['midi'])}, "
+              f"{len(f['wav'])}, {len(f['spectrogram'])})"
+              for (s, v), f in files.items()))
+    labels = LabelsMultiple(extended=True)
+    time_sigs = load_time_signatures()
+    removed = {os.path.join(s, str(v), "midi", m)
+               for (s, v), subs in predicted["before"].items()
+               for m in subs["midi"] if m not in files[s, v]["midi"]}
+    check(removed == predicted["bad"], f"(m1) clean_files removed "
+          f"{sorted(removed)}, its rules {sorted(predicted['bad'])}")
+    clips = 0
+    for (split, v), subs in files.items():
+        for target in subs["target"]:
+            song = target.split(".")[0]
+            check(songs[song] == split, f"(m1) {song} routed to {split}")
+            with open(os.path.join(corpus, split, str(v), "target", target),
+                      "rb") as f:
+                bars = pickle.load(f)
+            check(len(bars) == 5 and all(
+                len(b) == 4 and -6 <= b[0] <= 7 and b[1] in time_sigs
+                and labels.decode(b[2]) and labels.decode(b[3])
+                for b in bars), f"(m1) {split}/{v}/{target} decodes to 5 bars")
+        for midi in subs["midi"]:
+            name = midi[:-4]
+            check(f"{name}.pkl" in subs["target"],
+                  f"(m1) {split}/{v}/{midi} has its target")
+            wavs = [w for w in subs["wav"] if w.split("~")[0] == name]
+            check(len(wavs) == (3 if split == "test" else 1),
+                  f"(m1) {split}/{v}/{name}'s WAVs {wavs}")
+            for w in wavs:
+                npy = w[:-4] + ".npy"
+                check(npy in subs["spectrogram"] and npy in subs["audio"],
+                      f"(m1) {split}/{v}/{w} has its spectrogram and audio")
+                audio = np.load(os.path.join(corpus, split, str(v), "audio",
+                                             npy))
+                check(audio.dtype == np.int16 and 0 < len(audio)
+                      <= CLIP_SAMPLES, f"(m1) {w}'s int16 audio")
+            clips += len(wavs)
+        check(len(subs["wav"]) == len(subs["spectrogram"])
+              == len(subs["audio"]), f"(m1) {split}/{v}: a spectrogram and "
+                                     f"an audio file per WAV")
+    check(all(files[s, v]["wav"] for s in ("train", "valid", "test")
+              for v in versions[:1]), "(m1) clips in version 0 of every "
+                                      "split")
+    stage_s = {}
+    for key, calls in spy.calls.items():
+        for _, secs, probe in calls:
+            stage_s[probe if key.endswith("_pool_map")
+                    else key.rsplit(".", 1)[1]] = secs
+    print(f"(m1) {sum(len(f['midi']) for f in files.values())} MIDI files "
+          f"({sum(len(f['target']) - len(f['midi']) for f in files.values())}"
+          f" targets without one: the rendered performance did not fit "
+          f"MIDIProcess's 4-12 s window), "
+          f"{len(removed)} clips removed by clean_files, {clips} WAVs and "
+          f"spectrograms; host seconds: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in stage_s.items())
+          + f"; the command {seconds:.2f}")
+    return corpus, files
+
+
+def phase_prepare_features(torch, tvqt, corpus, files):
+    """(m2) Every clip of the corpus through get_vqt on the card (the VQT
+    kernel) against its stored host spectrogram over the clip's own
+    1 + L // 160 frames: on the float32 samples the feature pass computed
+    it from (the WAV resampled to 16 kHz) within TOL_SPEC, and on the
+    stored int16 audio/ file (what training reads), whose rounding the
+    kernel and the plain f32 version see alike. Returns the largest
+    errors."""
+    from piano_a2s_tpu_torch.utils.audio import (PCM16_SCALE, read_wav,
+                                                 resample)
+    cfg = tvqt.VQTConfig()
+    kernels = tvqt.filters(cfg, "cuda")
+    clips = [(os.path.join(corpus, s, str(v)), w[:-4])
+             for (s, v), f in files.items() for w in f["wav"]]
+    err = {k: 0.0 for k in ("kernel", "plain", "kernel_int16",
+                            "plain_int16")}
+    lengths = []
+    for i in range(0, len(clips), N_CLIPS):
+        group = clips[i:i + N_CLIPS]
+        host = [np.load(os.path.join(f, "spectrogram", f"{n}.npy"))
+                for f, n in group]
+        f32 = []
+        for f, n in group:
+            data, sr = read_wav(os.path.join(f, "wav", f"{n}.wav"))
+            f32.append(resample(data, sr, cfg.sample_rate))
+        pcm = [np.load(os.path.join(f, "audio", f"{n}.npy")) for f, n in group]
+        lengths += [len(a) for a in pcm]
+        for label, audio in (("", f32), ("_int16", pcm)):
+            y = torch.tensor(np.stack([
+                np.pad(a.astype(np.float32) / (PCM16_SCALE if label else 1),
+                       (0, CLIP_SAMPLES - len(a))) for a in audio]),
+                device="cuda")
+            with torch.inference_mode():
+                got = tvqt.get_vqt(y, kernels, cfg).cpu().numpy()
+                plain = tvqt.log_compress(tvqt.vqt_magnitude_torch(
+                    y, kernels, cfg)).cpu().numpy()
+            for j, (a, h) in enumerate(zip(audio, host)):
+                n = 1 + len(a) // cfg.hop_length
+                check(h.shape == (n, cfg.n_bins), f"(m2) stored spectrogram "
+                                                  f"of {group[j][1]}")
+                for key, out in (("kernel", got), ("plain", plain)):
+                    err[key + label] = max(err[key + label], float(
+                        np.abs(out[j, :n] - h).max()))
+    print(f"(m2) {len(clips)} clips of {min(lengths)}-{max(lengths)} "
+          f"samples rendered from real scores: get_vqt on the card "
+          f"against the stored host spectrograms, float32 samples: kernel "
+          f"{err['kernel']:.3e} (atol {TOL_SPEC}), plain f32 "
+          f"{err['plain']:.3e}; the stored int16 audio: kernel "
+          f"{err['kernel_int16']:.3e}, plain f32 {err['plain_int16']:.3e}")
+    # The kernel's accuracy contract is (c)'s, against float64 (here the
+    # host twin's spectrograms): at most F64_RATIO times plain f32's error.
+    # TOL_SPEC, (k2)'s bound, is printed beside it: on these sparse spectra
+    # plain f32 itself comes close to it (near-floor bins, -79 dB).
+    print(f"(m2) kernel within {TOL_SPEC}: {err['kernel'] <= TOL_SPEC}; "
+          f"kernel / plain f32 {err['kernel'] / err['plain']:.3f} (at most "
+          f"{F64_RATIO})")
+    check(err["kernel"] <= max(TOL_SPEC, F64_RATIO * err["plain"]),
+          "(m2) the VQT kernel gives the host feature pass's spectrograms of "
+          "rendered scores within TOL_SPEC or F64_RATIO x plain f32's error")
+    check(err["kernel_int16"] <= err["plain_int16"] + TOL_SPEC,
+          "(m2) on the int16 audio the kernel adds at most TOL_SPEC to the "
+          "rounding's error")
+    return err
+
+
+def phase_prepare_train(torch, tmp, corpus, files, kernel):
+    """(m3) cli.pretrain at full width for one epoch on (m1)'s corpus from
+    audio (configs/pretrain.yaml: midi_syn epr, so valid and test read
+    versions 0-3), with its valid and test stages; the kernel's launch
+    count zeroed just before. Returns the path's launches."""
+    from piano_a2s_tpu_torch.cli import pretrain
+    from piano_a2s_tpu_torch.train.harness import Trainer
+    from piano_a2s_tpu_torch.train.logger import FileTrainLogger
+
+    def batches(n):
+        return -(-n // M_BATCH)
+
+    n_train = max(len(files["train", v]["audio"]) for v in range(M_VERSIONS))
+    n_eval = {s: sum(len(files[s, v]["audio"]) for v in range(M_VERSIONS))
+              for s in ("valid", "test")}
+    out = os.path.join(tmp, "run")
+    spy = Spy()
+    spy.wrap(Trainer, "_bucketed", lambda t, a, k, o: (
+        o["upper"].shape[-1], o["lower"].shape[-1]))
+    spy.wrap(Trainer, "_eval_stage")
+    spy.wrap(FileTrainLogger, "log_stats", lambda lg, a, k, o: k)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = 0
+    t0 = time.monotonic()
+    try:
+        rc = pretrain.main([
+            os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "configs", "pretrain.yaml"),
+            f"workspace={tmp}", f"feature_folder={corpus}",
+            f"output_folder={out}", "number_of_epochs=1",
+            "input_features=audio", f"batch_size={M_BATCH}",
+            f"train_versions={M_VERSIONS}", "profile_trace_steps=0",
+            "--profile", "--device", "cuda"])
+    finally:
+        spy.undo()
+    seconds = time.monotonic() - t0
+    launches = kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, "(m3) pretrain's exit code")
+    for _, _, stages in spy.of("FileTrainLogger.log_stats"):
+        for stage, stats in stages.items():
+            if stage != "stats_meta":
+                check(np.isfinite(stats["loss"]), f"(m3) {stage} loss finite")
+    for split, n in n_eval.items():
+        records = os.listdir(os.path.join(out, "results", split))
+        check(len(records) == n, f"(m3) {len(records)} {split} result "
+                                 f"JSONs for {n} clips")
+    with open(os.path.join(out, "profile", "step_times.json")) as f:
+        steps = json.load(f)["train_step"]
+    with open(os.path.join(out, "train_log.txt")) as f:
+        for line in f:
+            print(f"(m3) train_log: {line.rstrip()}")
+    expected = batches(n_train) + sum(batches(n) for n in n_eval.values())
+    caps = [c[2] for c in spy.of("Trainer._bucketed")]
+    print(f"(m3) one epoch of cli.pretrain on the corpus from audio: "
+          f"{n_train} train items, valid {n_eval['valid']} and test "
+          f"{n_eval['test']} clips, batch {M_BATCH}; {seconds:.2f} s; "
+          f"seconds per train step mean {steps['mean_s']:.3f} (min "
+          f"{steps['min_s']:.3f}, max {steps['max_s']:.3f}, over "
+          f"{steps['count']}); eval stages " + ", ".join(
+              f"{s:.3f}" for _, s, _ in spy.of("Trainer._eval_stage"))
+          + f" s; bucketed caps (upper, lower) {caps} (full caps (398, "
+          f"189)); peak device memory {peak / 2**30:.2f} GiB; vqt kernel "
+          f"launches {launches} (expected {expected}: one per train and "
+          f"eval batch)")
+    check(len(caps) == batches(n_train), "(m3) train batches")
+    check(launches == expected, "(m3) one vqt launch per train and eval "
+          "batch")
+    return launches
+
+
+def phase_prepare(torch, tvqt, kernel):
+    """(m) The score-to-corpus path at full width: (m1) the corpus on the
+    host, (m2) its spectrograms against the VQT kernel, (m3) one epoch on
+    the card (the path, with its own launch count). Returns the path's
+    launches."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="prepare_") as tmp:
+        corpus, files = phase_prepare_corpus(tmp)
+        phase_prepare_features(torch, tvqt, corpus, files)
+        return phase_prepare_train(torch, tmp, corpus, files, kernel)
+
+
 def main():
     t_main = time.monotonic()
     import torch
@@ -1737,6 +2192,14 @@ def main():
         launches["evaluate"] = phase_evaluate(torch, corpus, memorized_state,
                                               vqt_magnitude_cuda)
         print(f"(l) took {time.monotonic() - t_l:.1f} s")
+
+    # (m) the score-to-corpus path: the corpus (m1) and its spectrograms
+    # against the kernel (m2), then one epoch (m3), the path, zeroing the
+    # counts just before it.
+    gc.collect()
+    t_m = time.monotonic()
+    launches["prepare"] = phase_prepare(torch, tvqt, vqt_magnitude_cuda)
+    print(f"(m) took {time.monotonic() - t_m:.1f} s")
     check("jax" not in sys.modules, "no jax imported")
     check(not any(m == "piano_a2s_tpu" or m.startswith("piano_a2s_tpu.")
                   for m in sys.modules), "nothing of the JAX package imported")

@@ -16,8 +16,9 @@ NVIDIA GPU (Hopper):
   commands (transcribe, pretrain, finetune, evaluate, prepare_data,
   import_checkpoint).
 - ``symbolic``, ``data``, ``utils.audio``, ``config``: the host-side code
-  the port uses (vocabulary, score export, WAV I/O, experiment configs),
-  copied from the JAX package's modules of the same names.
+  the port uses (vocabulary, kern tokenizer and tools, score export, WAV
+  I/O, the data preparation stages, experiment configs), copied from the
+  JAX package's modules of the same names.
 
 The package imports ``torch`` and never ``jax``, and nothing of the JAX
 package ``piano_a2s_tpu``.

@@ -1,1 +1,2 @@
-"""Dataset metadata (the time-signature table)."""
+"""Datasets, the data preparation and their metadata (the time-signature
+table, the split lists)."""

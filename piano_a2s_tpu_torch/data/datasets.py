@@ -45,6 +45,11 @@ def load_time_signatures() -> List[str]:
         return json.load(f)
 
 
+def load_split_list(name: str) -> List[str]:
+    with open(os.path.join(_METADATA_DIR, name)) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
 def _load_npy(path: str) -> np.ndarray:
     return np.load(path)
 

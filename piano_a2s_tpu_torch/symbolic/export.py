@@ -1,6 +1,6 @@
 """Model output -> score files (MusicXML + MIDI).
 
-Copy of piano_a2s_tpu/symbolic/export.py's export path: inverts token
+Copy of piano_a2s_tpu/symbolic/export.py: inverts token
 sequences to kern text, parses to a Score, repairs ties, and writes
 MusicXML/MIDI (replaces the reference's get_xml_from_target + external
 tiefix/hum2xml/music21 pipeline; reference: data_processing/humdrum.py:
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
-from .score import Score, parse_staff_kern, repair_ties
+from .score import Part, Score, parse_staff_kern, repair_ties
 from .vocab import LabelsMultiple
 
 _default_labels = LabelsMultiple(extended=True)
@@ -28,6 +28,17 @@ def _dedupe_chords(line: str) -> str:
         notes = [n for n in dict.fromkeys(chord.split(" ")) if n]
         cols.append(" ".join(notes) if notes else chord)
     return "\t".join(cols)
+
+
+def split_sequence_bars(seq: str) -> List[str]:
+    """Split a flattened kern sequence (from Kern.tosequence) into per-bar
+    texts, stripping the leading/trailing barlines (the shared form of the
+    reference's inline strip logic, render.py:207-211 / asap.py:182-186)."""
+    if seq.startswith("=\n"):
+        seq = seq[2:]
+    if seq.endswith("\n="):
+        seq = seq[:-2]
+    return seq.split("\n=\n")
 
 
 def tokens_to_kern(measures: Sequence[Sequence[int]],
@@ -69,3 +80,11 @@ def export_target(target, musicxml_path: Optional[str] = None,
         from .midi import write_midi
         write_midi(score, midi_path)
     return score
+
+
+def part_from_kern_text(kern_text: str, keys: Sequence[int],
+                        time_sigs: Sequence[str],
+                        clef: str = "treble") -> Part:
+    part = parse_staff_kern(kern_text, list(keys), list(time_sigs),
+                            clef=clef)
+    return repair_ties(part)

@@ -1,7 +1,8 @@
 """Audio IO without external codec dependencies (numpy + scipy).
 
 The part of piano_a2s_tpu/utils/audio.py that the port uses: WAV reading
-via the stdlib wave module (PCM 8/16/24/32), polyphase resampling via
+(PCM 8/16/24/32) and 16-bit writing via the stdlib wave module, polyphase
+resampling via
 scipy, int16 conversions, and the fixed-length batch contract of the
 Transcriber and the datasets.
 """
@@ -25,6 +26,12 @@ def float32_to_int16(x: np.ndarray) -> np.ndarray:
     reference's data-pipeline helper; not the inverse of PCM16_SCALE)."""
     assert np.max(np.abs(x)) <= 1.0
     return (x * 32767.0).astype(np.int16)
+
+
+def int16_to_float32(x: np.ndarray) -> np.ndarray:
+    """int16 -> float32 at the reference's / 32767 scale (the inverse of
+    float32_to_int16)."""
+    return (x / 32767.0).astype(np.float32)
 
 
 def to_pcm16(data: np.ndarray) -> np.ndarray:
@@ -81,6 +88,17 @@ def read_wav_pcm16(path: str, expect_sr=None):
             return None
         raw = w.readframes(w.getnframes())
     return np.frombuffer(raw, dtype="<i2"), sr
+
+
+def write_wav(path: str, data: np.ndarray, sr: int) -> None:
+    """Mono 16-bit PCM WAV of ``data`` clipped to [-1, 1], at the
+    reference's x 32767 scale."""
+    data = np.clip(np.asarray(data, np.float32), -1.0, 1.0)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((data * 32767.0).astype("<i2").tobytes())
 
 
 def pcm16_to_float(data: np.ndarray) -> np.ndarray:

@@ -212,24 +212,6 @@ def test_prepare_data_command_runs_the_feature_passes(tmp_path, capsys):
     assert len(os.listdir(os.path.join(a_root, "train", "spectrogram"))) == 2
 
 
-@pytest.mark.parametrize("dataset,stage", [("syn", "render"),
-                                           ("syn", "convert"),
-                                           ("asap", "slice")])
-def test_prepare_data_refuses_host_tool_stages(tmp_path, capsys, dataset,
-                                               stage):
-    yaml_path = _tiny_yaml(tmp_path / "c.yaml", str(tmp_path))
-    with pytest.raises(SystemExit) as e:
-        prepare_data.main([dataset, yaml_path, stage])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err
-    jax_cmd = f"python prepare_data.py {dataset} {yaml_path}"
-    assert (jax_cmd + (f" {stage}" if dataset == "syn" else "")) in err
-    with pytest.raises(SystemExit):
-        prepare_data.main(["syn", yaml_path, "spectrogram"])  # a typo
-    assert "unknown stage" in capsys.readouterr().err
-
-
 # --- the checkpoint import ---------------------------------------------------
 
 CLI_YAML = """\
