@@ -10,7 +10,9 @@ Phases, each of which raises on failure:
   (c) kernel vs plain: the VQT kernel and its plain PyTorch version (f32)
       on the card, at every shape the main paths give it: 2 x 3 s and
       16 x 12 s of noise (serving), 4 x 12 s and 2 x 12 s of int16 noise
-      scaled by 1/32768 (a training batch and microbatch of (g2)), each
+      scaled by 1/32768 (a training batch and microbatch of (g2)), 1 x
+      12 s of it (one clip: (n1)'s side B, Transcriber.spectrogram) and 8 x
+      12 s (with 1, 2, 4 and 16, every batch (n3)'s server pads to), each
       held against the plain version run in float64: the kernel's max
       error must be at most twice the plain f32 version's, on the
       magnitude and after log_compress (taken in float64), and
@@ -133,6 +135,28 @@ Phases, each of which raises on failure:
       --profile) on the corpus with its valid and test stages: losses
       finite, one result JSON per valid and test clip; prints seconds per
       train step, the bucketed caps and peak device memory.
+  (n) the diagnostic tools at full width, run after (l) on (k)'s corpus
+      with (k3)'s weights, saved once through the port's Checkpointer into
+      a save folder that each tool loads as a user would. (n1)
+      tools.frontend_ab.main over (k)'s 4 test clips: side A from the
+      stored host spectrograms (Transcriber._infer_spectrogram), side B
+      from audio (the VQT kernel at 1 x 12 s, once a clip); time and key
+      signature agreement 1.0, token agreement at least 0.95 a staff, the
+      two sides' WERs within 0.02; prints the report. (n2)
+      tools.inspect_attention.main from audio for clip 0, bar 0, the upper
+      then the lower staff (configs/pretrain.yaml, input_features=audio):
+      one kernel launch a call, one row a target token, teacher-forced
+      accuracy at least 0.8; prints the mean attention entropy against
+      ln(1201) and the share of steps whose argmax frame lies within 60
+      frames of the guided-attention expected frame. (n3)
+      tools.load_test.main, 16 clients and 64 requests over (k)'s 4 test
+      clips, against the port's server in this process (a Transcriber of
+      the save folder, warmed at every padded batch size as the server
+      command warms it, dynamic batches of at most 16): 64 answered, no
+      error, one kernel launch a dynamic batch (the server's /stats
+      batches); prints clips/s and /stats, and how many of the distinct
+      clips' HTTP results differ from Transcriber.transcribe of the clip
+      alone (a reading: the decode's stop is coupled across a batch).
 
 Each main path has its own launch counts, zeroed just before it and read
 just after it: serving over (e) and (f), training over (g2), the harness
@@ -142,9 +166,11 @@ bf16 training over (i2), once per step, mesh serving over one call of each
 mesh Transcriber of (j1), once per shard, and data-parallel training over
 (j2)'s world-size-1 step and eval and the ranks' steps (which print their
 counts), once per rank per microbatch, the synth path over (k3) and
-(k4)'s first batch, once per train step, greedy decode and batch, and the
-evaluation path over (l1)'s test stage, once per eval batch, and the
-prepare path over (m3)'s epoch, once per train and eval batch. Each path
+(k4)'s first batch, once per train step, greedy decode and batch, the
+evaluation path over (l1)'s test stage, once per eval batch, the
+diagnostic paths over (n1)'s clips, once a clip, (n2)'s two calls, once a
+call, and (n3)'s load test, once a dynamic batch, and the prepare path
+over (m3)'s epoch, once per train and eval batch. Each path
 must have launched every kernel it runs. The line before the last
 holds the kernels' JSON record (``launches`` is the sum over the paths,
 ``launches_by_path`` each path's count); the last line is the result
@@ -155,6 +181,7 @@ is one rank of (j2), started by (j2) itself. The run prints its total
 seconds before the kernels' record.
 """
 
+import contextlib
 import gc
 import io
 import json
@@ -205,6 +232,15 @@ K_TF, K_EVAL_EVERY, K_MATCH, K_MAX_STEPS = 1.0, 10, 0.8, 180
 # what the memorized model's evaluation must reach: export errors, mean
 # MV2H (the identity copy must score 1.0).
 L_BATCH, L_MAX_ERRORS, L_MIN_MV2H = 4, 1, 0.5
+# (n): the diagnostic tools on (k)'s corpus and (k3)'s weights. (n1) the
+# least token agreement of the two frontends on each staff and the largest
+# gap of their WERs; (n2) the least teacher-forced accuracy (the JAX
+# package's overfit measure, as (k3)) and the window around the expected
+# frame an argmax counts as aligned in (5% of 1201 frames); (n3) the load
+# test's clients and requests, the server's largest batch.
+N_MIN_TOKEN_AGREEMENT, N_MAX_WER_GAP = 0.95, 0.02
+N_MIN_TF_ACCURACY, N_ALIGN_FRAMES = 0.8, 60
+N_CLIENTS, N_REQUESTS, N_MAX_BATCH = 16, 64, 16
 # (m): the real-score excerpts (the first two renamed into the test and the
 # valid split), the versions prepared and (m3)'s batch. cli.pretrain with
 # midi_syn=epr reads versions 0-3 of valid and test, and xml_to_midi renders
@@ -310,13 +346,18 @@ def phase_kernel_vs_plain(torch, tvqt, launches_of):
     def pcm(shape, seed):
         return pcm16_noise(shape, seed).astype(np.float32) / PCM16_SCALE
 
-    # Serving shapes, then (g2)'s batch and microbatch; 16 x 12 s last, as
-    # it is timed below.
+    # Serving shapes, then (g2)'s batch and microbatch, then one full clip
+    # (frontend_ab's side B and Transcriber.spectrogram), then every other
+    # power of two the server pads a dynamic batch of at most N_MAX_BATCH
+    # to ((n3)); 16 x 12 s last, as it is timed below.
+    rows = [TRAIN_CLIPS, TRAIN_CLIPS // 2, 1]
+    rows += [1 << i for i in range(N_MAX_BATCH.bit_length())
+             if 1 << i not in rows + [N_CLIPS]]
     cases = (((2, 48000), noise((2, 48000), 0.2, 0)),
-             ((TRAIN_CLIPS, CLIP_SAMPLES), pcm((TRAIN_CLIPS, CLIP_SAMPLES), 5)),
-             ((TRAIN_CLIPS // 2, CLIP_SAMPLES),
-              pcm((TRAIN_CLIPS // 2, CLIP_SAMPLES), 6)),
+             *(((b, CLIP_SAMPLES), pcm((b, CLIP_SAMPLES), 5 + i))
+               for i, b in enumerate(rows)),
              ((N_CLIPS, CLIP_SAMPLES), noise((N_CLIPS, CLIP_SAMPLES), 0.1, 1)))
+    check(N_CLIPS == N_MAX_BATCH, "(c) the timed case is (n3)'s largest batch")
     worst = 0.0
     for shape, audio in cases:
         y = torch.tensor(audio, device=dev)
@@ -1531,8 +1572,6 @@ def run_evaluate(label, configs, corpus, out):
     results, native MV2H and MUSTER; its lines printed under ``label``.
     Returns the host seconds a clip of the export, the MV2H and the
     MUSTER scoring."""
-    import contextlib
-
     import piano_a2s_tpu_torch.train.evaluate_offline as toffline
     import piano_a2s_tpu_torch.train.muster as tmuster
     import piano_a2s_tpu_torch.train.mv2h as tmv2h
@@ -1677,6 +1716,200 @@ def phase_evaluate(torch, corpus, state_dict, kernel):
     return launches
 
 
+def save_folder_of(tmodels, tstep, state_dict, folder):
+    """(n) ``state_dict`` saved once through the port's Checkpointer as a
+    save folder of its training commands (WER 0, a fresh Adadelta), which
+    each tool loads as a user would. Returns the folder."""
+    from piano_a2s_tpu_torch.train.checkpoint import Checkpointer
+    model = tmodels.ScoreTranscription(tmodels.ModelConfig())
+    model.load_state_dict({k: v.cpu() for k, v in state_dict.items()},
+                          strict=True)
+    Checkpointer(folder).save(
+        {"model": model.state_dict(),
+         "optimizer": tstep.make_optimizer(model.parameters()).state_dict()},
+        {"WER": 0.0}, {"epoch": 1, "fresh_optimizer": True})
+    return folder
+
+
+def phase_frontend_ab(save, corpus, out, kernel):
+    """(n1) tools.frontend_ab.main on (k)'s test split: side A from the
+    stored host spectrograms, side B from audio through the VQT kernel, one
+    launch a clip (its count zeroed just before). Returns the launches."""
+    from piano_a2s_tpu_torch.tools import frontend_ab
+
+    n_clips = len(os.listdir(os.path.join(corpus, "test", "0", "audio")))
+    kernel.launches = 0
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = frontend_ab.main([save, corpus, "--split", "test",
+                                   "--out", out])
+    seconds = time.monotonic() - t0
+    launches = kernel.launches
+    with open(out) as f:
+        written = json.load(f)
+    wer = report["wer_vs_target"]
+    gap = max(abs(wer[f"oracle_spectrogram_{s}"] - wer[f"ondevice_vqt_{s}"])
+              for s in ("upper", "lower"))
+    print(f"(n1) frontend A/B over {report['clips']} clips in {seconds:.2f} "
+          f"s (the Transcriber's load included): {json.dumps(report)}; WER "
+          f"gap {gap:.4f} (at most {N_MAX_WER_GAP}); vqt kernel launches "
+          f"{launches}")
+    check(written == report, "(n1) the report written to --out")
+    check(report["clips"] == n_clips and launches == n_clips,
+          "(n1) one vqt launch a clip (side B)")
+    check(report["ts_agreement"] == 1.0 and report["key_agreement"] == 1.0,
+          "(n1) the time and key signatures of both frontends agree")
+    check(min(report["upper_token_agreement"],
+              report["lower_token_agreement"]) >= N_MIN_TOKEN_AGREEMENT,
+          f"(n1) token agreement at least {N_MIN_TOKEN_AGREEMENT} a staff")
+    check(gap <= N_MAX_WER_GAP, f"(n1) WER gap at most {N_MAX_WER_GAP}")
+    return launches
+
+
+def phase_inspect_attention(save, corpus, tmp, kernel):
+    """(n2) tools.inspect_attention.main on (k)'s test split from audio,
+    clip 0, bar 0, the upper then the lower staff; each call one VQT kernel
+    launch (its count zeroed just before). Returns the launches."""
+    import pickle
+
+    from piano_a2s_tpu_torch.tools import inspect_attention
+
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs")
+    audio = os.path.join(corpus, "test", "0", "audio")
+    first = sorted(os.listdir(audio))[0][:-len(".npy")]
+    with open(os.path.join(corpus, "test", "0", "target",
+                           f"{first.split('~')[0]}.pkl"), "rb") as f:
+        bar0 = pickle.load(f)[0]
+    total = 0
+    for staff, tokens in (("upper", bar0[3]), ("lower", bar0[2])):
+        kernel.launches = 0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            rows = inspect_attention.main([
+                "--checkpoint", save, "--config",
+                os.path.join(configs, "pretrain.yaml"), "--feature-folder",
+                corpus, "--split", "test", "--clip", "0", "--bar", "0",
+                "--staff", staff, f"workspace={tmp}", "midi_syn=score",
+                f"output_folder={tmp}/n2", "input_features=audio"])
+        seconds = time.monotonic() - t0
+        launches = kernel.launches
+        total += launches
+        for line in text.getvalue().splitlines()[:2]:
+            print(f"(n2) {line}")
+        acc = float(np.mean([r["pred"] == r["gt"] for r in rows]))
+        entropy = float(np.mean([r["entropy"] for r in rows]))
+        aligned = float(np.mean([abs(r["argmax_frame"] - r["expected_frame"])
+                                 <= N_ALIGN_FRAMES for r in rows]))
+        print(f"(n2) {staff}: {len(rows)} steps (the bar's target has "
+              f"{len(tokens)}) in {seconds:.2f} s (the Trainer's build "
+              f"included); tf accuracy {acc:.3f} (at least "
+              f"{N_MIN_TF_ACCURACY}); mean attention entropy {entropy:.3f} "
+              f"against the uniform {np.log(1201):.3f}; argmax within "
+              f"{N_ALIGN_FRAMES} frames of the expected frame in "
+              f"{aligned:.3f} of the steps; rows "
+              + "; ".join(f"{r['step']} {r['entropy']:.3f} "
+                          f"{r['argmax_frame']} {r['expected_frame']} "
+                          f"{r['gt']}/{r['pred']}" for r in rows)
+              + f"; vqt kernel launches {launches}")
+        check(launches == 1, "(n2) one vqt launch a call")
+        check(len(rows) == len(tokens), "(n2) one row a target token")
+        check(acc >= N_MIN_TF_ACCURACY,
+              f"(n2) teacher-forced accuracy at least {N_MIN_TF_ACCURACY}")
+    return total
+
+
+def phase_load_test(load_transcriber, make_server, save, corpus, kernel):
+    """(n3) tools.load_test.main against the port's server in this process
+    (a Transcriber of the save folder on the card, warmed as the server
+    command warms it, dynamic batches of at most N_MAX_BATCH), N_CLIENTS
+    clients sending N_REQUESTS of (k)'s test clips; one VQT kernel launch a
+    dynamic batch (its count zeroed just before). Then each distinct clip's HTTP results against
+    Transcriber.transcribe of that clip alone. Returns the launches."""
+    from piano_a2s_tpu_torch.serve import warm
+    from piano_a2s_tpu_torch.tools import load_test
+
+    tr = load_transcriber(save, device="cuda")
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()):
+        warm(tr, N_MAX_BATCH)  # as the server command does before traffic
+    print(f"(n3) warmed every padded batch size up to {N_MAX_BATCH} in "
+          f"{time.monotonic() - t0:.2f} s")
+    served = {}  # each prepared clip's bytes -> (clip, its results)
+
+    def recording(audio, n, timings=None):
+        results = tr_prepared(audio, n, timings=timings)
+        for row, res in zip(audio[:n], results):
+            served.setdefault(row.tobytes(), (row.copy(), []))[1].append(res)
+        return results
+
+    tr_prepared = tr.transcribe_prepared
+    tr.transcribe_prepared = recording
+    httpd = make_server(tr, "127.0.0.1", 0, max_batch=N_MAX_BATCH)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        kernel.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            rc = load_test.main([
+                "--url", url, "--clients", str(N_CLIENTS), "--clips",
+                str(N_REQUESTS), "--audio-dir",
+                os.path.join(corpus, "test", "0", "audio")])
+        launches = kernel.launches
+        with urllib.request.urlopen(f"{url}/stats", timeout=30) as r:
+            stats = json.load(r)
+    finally:
+        httpd.shutdown()
+        httpd.service.close()
+        thread.join(timeout=30)
+        del tr.transcribe_prepared
+    report = json.loads(text.getvalue().strip().splitlines()[-1])
+    differ = sum(any(res != tr.transcribe(row) for res in results)
+                 for row, results in served.values())
+    print(f"(n3) load test, {N_CLIENTS} clients, {N_REQUESTS} requests over "
+          f"{len(served)} distinct clips, max batch {N_MAX_BATCH}: ok "
+          f"{report['ok']}, errors {report['errors']}, wall "
+          f"{report['wall_s']} s, {report['clips_per_sec']} clips/s; server "
+          f"batches {stats['batches']}, clips per batch "
+          f"{stats['clips_per_batch']}, "
+          + ", ".join(f"{k} {v}" for k, v in sorted(stats.items())
+                      if k.endswith("_ms_per_batch"))
+          + f"; vqt kernel launches {launches}; distinct clips whose HTTP "
+          f"results differ from Transcriber.transcribe alone: {differ} of "
+          f"{len(served)}")
+    check(rc == 0 and report["ok"] == N_REQUESTS and report["errors"] == 0,
+          f"(n3) {N_REQUESTS} requests answered, no error")
+    check(launches == stats["batches"] > 0,
+          "(n3) one vqt launch a dynamic batch")
+    check(not thread.is_alive(), "(n3) server thread stopped")
+    return launches
+
+
+def phase_diagnostics(tmodels, tstep, load_transcriber, make_server, corpus,
+                      state_dict, kernel):
+    """(n) The three diagnostic tools on (k)'s corpus with (k3)'s weights,
+    saved once into a save folder: (n1) frontend A/B, (n2) the attention
+    probe, (n3) the HTTP load test, each path with its own launch count.
+    Returns the launches by path."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="diagnostics_") as tmp:
+        save = save_folder_of(tmodels, tstep, state_dict,
+                              os.path.join(tmp, "save"))
+        launches = {}
+        for name, run in (
+                ("frontend_ab", lambda: phase_frontend_ab(
+                    save, corpus, os.path.join(tmp, "ab.json"), kernel)),
+                ("inspect_attention", lambda: phase_inspect_attention(
+                    save, corpus, tmp, kernel)),
+                ("load_test", lambda: phase_load_test(
+                    load_transcriber, make_server, save, corpus, kernel))):
+            t0 = time.monotonic()
+            launches[name] = run()
+            print(f"(n) {name} took {time.monotonic() - t0:.1f} s")
+    return launches
+
+
 def m_kern_folder(kern):
     """(m1) The real-score excerpts copied into ``kern``, the first renamed
     to the first song of the port's test_split.txt and the second to that
@@ -1784,7 +2017,6 @@ def phase_prepare_corpus(tmp):
     (the native EPR engine), clean, render (the stand-in synthesizer),
     spectrograms, M_VERSIONS versions. Returns (corpus folder, the files of
     each split and version)."""
-    import contextlib
     import pickle
 
     import piano_a2s_tpu_torch.cli.prepare_data as tprepare
@@ -2061,7 +2293,7 @@ def main():
     import piano_a2s_tpu_torch.models as tmodels
     import piano_a2s_tpu_torch.ops.layers as tlayers
     import piano_a2s_tpu_torch.train.step as tstep
-    from piano_a2s_tpu_torch.infer import Transcriber
+    from piano_a2s_tpu_torch.infer import Transcriber, load_transcriber
     from piano_a2s_tpu_torch.models import ModelConfig, init_state_dict
     from piano_a2s_tpu_torch.ops import _build
     from piano_a2s_tpu_torch.ops import vqt as tvqt
@@ -2179,7 +2411,8 @@ def main():
 
     # (k) the synth path, zeroing the counts just before (k3); (l) the
     # evaluation path on (k)'s test split with (k3)'s weights, zeroing them
-    # just before the test stage.
+    # just before the test stage; (n) the diagnostic tools on the same
+    # corpus and weights, each zeroing them just before its path.
     import tempfile
     gc.collect()
     with tempfile.TemporaryDirectory(prefix="synth_corpus_") as corpus:
@@ -2192,6 +2425,11 @@ def main():
         launches["evaluate"] = phase_evaluate(torch, corpus, memorized_state,
                                               vqt_magnitude_cuda)
         print(f"(l) took {time.monotonic() - t_l:.1f} s")
+        t_n = time.monotonic()
+        launches.update(phase_diagnostics(
+            tmodels, tstep, load_transcriber, make_server, corpus,
+            memorized_state, vqt_magnitude_cuda))
+        print(f"(n) took {time.monotonic() - t_n:.1f} s")
 
     # (m) the score-to-corpus path: the corpus (m1) and its spectrograms
     # against the kernel (m2), then one epoch (m3), the path, zeroing the
@@ -2204,6 +2442,8 @@ def main():
     check(not any(m == "piano_a2s_tpu" or m.startswith("piano_a2s_tpu.")
                   for m in sys.modules), "nothing of the JAX package imported")
 
+    check(len(launches) == 13 and min(launches.values()) > 0,
+          f"every one of the 13 paths launched the vqt kernel: {launches}")
     bound_ms, bound_by = vqt_bound(N_CLIPS, CLIP_SAMPLES)
     print(f"chip_smoke: every phase passed in {time.monotonic() - t_main:.1f}"
           f" s")

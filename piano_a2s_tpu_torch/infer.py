@@ -4,7 +4,10 @@ Port of piano_a2s_tpu/infer.py. A clip of up to 12 s becomes the target
 structure ``[[key, time_sig, lower_tokens, upper_tokens], ...]`` (one entry
 per bar) ready for Kern/MusicXML/MIDI export. The audio goes to the device
 as it is (float32, or int16 PCM converted there), the VQT frontend and the
-model run on the device, and uint8 tokens and int16 lengths come back.
+model run on the device, and uint8 tokens and int16 lengths come back. A
+stored spectrogram decodes through the same model
+(``Transcriber._infer_spectrogram``), and ``Transcriber.spectrogram`` gives
+the model's input for a clip.
 
 Multi-device serving (``Transcriber(use_mesh=True)``, the JAX package's
 batch-sharded mesh): one model copy and one VQT filter pair per device,
@@ -105,30 +108,61 @@ class Transcriber:
         as it is (converted on the device)."""
         return trim_pad_audio(audio, self.max_samples)
 
-    @torch.inference_mode()
-    def _infer_audio(self, audio: np.ndarray, shard: int = 0):
-        """(B, max_samples) float32 or int16 -> device tensors (time_sig,
-        key, upper tokens, lower tokens as uint8; lengths as int16), on
-        ``shard``'s device and model."""
-        model, kernels = self._shards[shard]
+    def _vqt(self, audio: np.ndarray, shard: int = 0) -> torch.Tensor:
+        """(B, samples) float32 or int16 (divided by PCM16_SCALE on the
+        device) -> the log-VQT (B, frames, bins) on ``shard``'s device."""
         x = torch.from_numpy(np.ascontiguousarray(audio)).to(
             self.devices[shard])
         if x.dtype == torch.int16:
             x = x.to(torch.float32) / PCM16_SCALE
-        spec = get_vqt(x, kernels, self.vqt_cfg)
+        return get_vqt(x, self._shards[shard][1], self.vqt_cfg)
+
+    def _frontend(self, audio: np.ndarray, shard: int = 0) -> torch.Tensor:
+        """(B, max_samples) audio -> the model's input (B, 1,
+        max_frame_num, bins): the log-VQT cut or zero-padded on the
+        device to max_frame_num frames."""
+        spec = self._vqt(audio, shard)
         t = spec.shape[1]
         if t >= self.max_frame_num:
             spec = spec[:, : self.max_frame_num]
         else:
             spec = torch.nn.functional.pad(
                 spec, (0, 0, 0, self.max_frame_num - t))
-        ts, key, _, _, aux = model(spec[:, None],
-                                   decode_dtype=self.decode_dtype)
+        return spec[:, None]
+
+    @torch.inference_mode()
+    def _infer_spectrogram(self, spec, shard: int = 0):
+        """(B, 1, max_frame_num, bins) float32 spectrogram (numpy or
+        tensor) -> device tensors (time_sig, key, upper tokens, lower
+        tokens as uint8; lengths as int16), on ``shard``'s device and
+        model."""
+        spec = torch.as_tensor(spec, dtype=torch.float32).to(
+            self.devices[shard])
+        ts, key, _, _, aux = self._shards[shard][0](
+            spec, decode_dtype=self.decode_dtype)
         return (ts.argmax(-1).to(torch.uint8), key.argmax(-1).to(torch.uint8),
                 aux["upper_tokens"].to(torch.uint8),
                 aux["lower_tokens"].to(torch.uint8),
                 aux["upper_lengths"].to(torch.int16),
                 aux["lower_lengths"].to(torch.int16))
+
+    @torch.inference_mode()
+    def _infer_audio(self, audio: np.ndarray, shard: int = 0):
+        """(B, max_samples) float32 or int16 -> ``_infer_spectrogram``'s
+        outputs, through the device frontend."""
+        return self._infer_spectrogram(self._frontend(audio, shard), shard)
+
+    @torch.inference_mode()
+    def spectrogram(self, audio: np.ndarray) -> np.ndarray:
+        """Mono audio (at most max_samples are kept) -> the model's input
+        spectrogram (1, max_frame_num, bins) float32 on the host: the clip
+        trimmed or zero-padded to max_samples, its log-VQT on the device,
+        the frames zero-padded on the host. For inspecting the input; the
+        inference paths run the frontend on the device."""
+        spec = self._vqt(self._prep_audio(audio)[None])[0].cpu().numpy()
+        out = np.zeros((self.max_frame_num, spec.shape[-1]), np.float32)
+        out[: spec.shape[0]] = spec[: self.max_frame_num]
+        return out[None]
 
     def _infer_sharded(self, audio: np.ndarray) -> tuple:
         """The mesh's forward: contiguous equal shards of the batch, each

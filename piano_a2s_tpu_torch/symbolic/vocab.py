@@ -1,11 +1,15 @@
-"""The model's kern sub-token vocabulary, :class:`LabelsMultiple`.
+"""Kern token vocabularies, copied from piano_a2s_tpu/symbolic/vocab.py
+(behavior-compatible with the reference: data_processing/humdrum.py:38-187):
 
-Copy of the class of piano_a2s_tpu/symbolic/vocab.py (behavior-compatible
-with the reference: data_processing/humdrum.py:70-131): 148 base + 25
-extended = 173 symbols (durations, pitch names, rest, ties, fermata,
-structural separators, ``<sos>/<eos>/<pad>``). The pitch table is generated
-from the kern pitch "ladder" (flat / natural / sharp per letter per octave
-register); ``<pad>`` = 147, ``<sos>`` = 145, ``<eos>`` = 146.
+- :class:`LabelsMultiple`: the model's sub-token scheme, 148 base + 25
+  extended = 173 symbols (durations, pitch names, rest, ties, fermata,
+  structural separators, ``<sos>/<eos>/<pad>``); ``<pad>`` = 147,
+  ``<sos>`` = 145, ``<eos>`` = 146.
+- :class:`Labels`: 38 char-level symbols (legacy CTC scheme, ``ctclen``).
+- :class:`LabelsSingle`: fused duration+pitch symbols (unused alternative).
+
+The pitch table is generated from the kern pitch "ladder" (flat / natural /
+sharp per letter per octave register).
 """
 
 from __future__ import annotations
@@ -132,3 +136,73 @@ class LabelsMultiple:
         """
         decoded = [self.labels_map_inv.get(int(t)) for t in tokens]
         return [s if s != "<b>" else " " for s in decoded if s]
+
+
+class Labels:
+    """Legacy char-level vocabulary (38 symbols, CTC-era).
+
+    (reference: humdrum.py:38-67)
+    """
+
+    def __init__(self):
+        self.labels = (
+            ["+"]
+            + list("0123456789")
+            + list("CDEFGAB") + list("cdefgab")
+            + ["r", "#", "-", "=", ".", "[", "_", "]", ";", "\t", "\n",
+               "<", ">"]
+        )
+        self.labels_map = {c: i for i, c in enumerate(self.labels)}
+        self.labels_map_inv = {i: c for i, c in enumerate(self.labels)}
+
+    def ctclen(self, tokens) -> int:
+        count = len(tokens)
+        count += sum(tokens[i - 1] == tokens[i] for i in range(1, count))
+        return count
+
+    def encode(self, chars) -> List[int]:
+        return [self.labels_map[c] for c in chars]
+
+    def decode(self, tokens) -> List[str]:
+        return [s for s in (self.labels_map_inv.get(t) for t in tokens) if s]
+
+
+class LabelsSingle:
+    """Fused duration+pitch vocabulary (9146 / 13631 symbols; unused
+    alternative kept for capability parity). (reference: humdrum.py:134-187)
+    """
+
+    def __init__(self, extended: bool = False):
+        durations = list(_BASE_DURATIONS)
+        base_pitches, ext_pitches = _pitch_tables()
+        # The single-label pitch table ends at eeee# in the base set and adds
+        # ffff-/ffff only when extended. (reference: humdrum.py:139-151)
+        notes = base_pitches[: base_pitches.index("eeee#") + 1]
+        if extended:
+            durations.extend(_EXT_DURATIONS)
+            # reference order: CCC..BBB then CC- then ffff-/ffff
+            notes = notes + ext_pitches + ["ffff-", "ffff"]
+        self.labels: List[str] = []
+        for d in durations:
+            for n in notes:
+                self.labels.append(d + n)
+                self.labels.append("[" + d + n)
+                self.labels.append(d + n + "_")
+                self.labels.append(d + n + "]")
+            self.labels.append(d + "r")
+        self.labels.extend([".", "\t", "\n", "<sos>", "<eos>", "<pad>"])
+        self.labels_map = {c: i for i, c in enumerate(self.labels)}
+        self.labels_map_inv = {i: c for i, c in enumerate(self.labels)}
+
+    def encode(self, chars: str) -> List[int]:
+        tokens: List[int] = []
+        for line in chars.splitlines():
+            for item in line.split("\t"):
+                tokens.append(self.labels_map[item])
+                tokens.append(self.labels_map["\t"])
+            tokens[-1] = self.labels_map["\n"]
+        tokens.pop()
+        return tokens
+
+    def decode(self, tokens) -> List[str]:
+        return [s for s in (self.labels_map_inv.get(t) for t in tokens) if s]
