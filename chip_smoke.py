@@ -11,8 +11,9 @@ Phases, each of which raises on failure:
       on the card, at every shape the main paths give it: 2 x 3 s and
       16 x 12 s of noise (serving), 4 x 12 s and 2 x 12 s of int16 noise
       scaled by 1/32768 (a training batch and microbatch of (g2)), 1 x
-      12 s of it (one clip: (n1)'s side B, Transcriber.spectrogram) and 8 x
-      12 s (with 1, 2, 4 and 16, every batch (n3)'s server pads to), each
+      12 s of it (one clip: (n1)'s side B, Transcriber.spectrogram, (o4)'s
+      microbatch), 8 x 12 s (with 1, 2, 4 and 16, every batch (n3)'s
+      server pads to) and 64 x 12 s ((o1)'s batch), each
       held against the plain version run in float64: the kernel's max
       error must be at most twice the plain f32 version's, on the
       magnitude and after log_compress (taken in float64), and
@@ -157,6 +158,30 @@ Phases, each of which raises on failure:
       batches); prints clips/s and /stats, and how many of the distinct
       clips' HTTP results differ from Transcriber.transcribe of the clip
       alone (a reading: the decode's stop is coupled across a batch).
+  (o) the port's last gaps at full width. (o1) the decode's stop groups
+      (decode_chunk, the Transcriber's default "auto"), with (k3)'s
+      weights on 64 clips in runs of 16: (k)'s clips tiled, half and
+      half, noise, quieter noise. transcribe_batch of the 64 in f32 (4
+      groups of 16) and bf16 (2 groups of 32); each group against its
+      clips decoded alone: the steps each clip ran at every bar and staff
+      equal (the gate; its control, the one-group decode of the 64, must
+      fail it in some group), log-probs within 1e-3 (bf16: a reading) up
+      to a first token divergence, which may only fall at a top-2 margin
+      below 1e-3 (bf16: twice the group's largest log-prob difference),
+      and a group without one equal outright; the steps each group ran by
+      bar and staff, at least two f32 groups apart; clips/s of "auto" and
+      None in turns and the clips that differ between them. (o2) (k3)'s
+      weights in a save folder through cli.export_checkpoint,
+      cli.import_checkpoint and load_transcriber, bare and --modulelist:
+      the weights bit-equal, the tokens of (k)'s clips equal. (o3) entry() on the card: output
+      shapes, seconds, tokens equal to Transcriber._infer_spectrogram's;
+      the two-rank dry run (``entry multichip 2``) on the card.
+      (o4) the data-parallel step at B=4, A=4 on two gloo ranks on cuda:0
+      (one row a microbatch: rank 0 owns none and computes stand-in rows
+      that weigh 0 and count in no statistic; row 0 weighs 0, so
+      microbatch 0 takes the BatchNorm's unweighted fallback), full width
+      from audio, targets of at most 64 tokens: each rank within 1e-5 of
+      the plain step, the ranks identical.
 
 Each main path has its own launch counts, zeroed just before it and read
 just after it: serving over (e) and (f), training over (g2), the harness
@@ -169,16 +194,18 @@ counts), once per rank per microbatch, the synth path over (k3) and
 (k4)'s first batch, once per train step, greedy decode and batch, the
 evaluation path over (l1)'s test stage, once per eval batch, the
 diagnostic paths over (n1)'s clips, once a clip, (n2)'s two calls, once a
-call, and (n3)'s load test, once a dynamic batch, and the prepare path
-over (m3)'s epoch, once per train and eval batch. Each path
+call, and (n3)'s load test, once a dynamic batch, the prepare path over
+(m3)'s epoch, once per train and eval batch, and serving with stop groups
+over (o1)'s two batches, once a batch; (o4)'s ranks add their launches,
+once per rank per microbatch, to data-parallel training's. Each path
 must have launched every kernel it runs. The line before the last
 holds the kernels' JSON record (``launches`` is the sum over the paths,
 ``launches_by_path`` each path's count); the last line is the result
 object.
 
-``python3 chip_smoke.py --train-dp-rank RANK WORLD INIT BACKEND DEVICE OUT``
-is one rank of (j2), started by (j2) itself. The run prints its total
-seconds before the kernels' record.
+``python3 chip_smoke.py --train-dp-rank RANK WORLD INIT BACKEND DEVICE OUT
+ACCUM BATCH`` is one rank of (j2) or (o4), started by the phase itself.
+The run prints its total seconds before the kernels' record.
 """
 
 import contextlib
@@ -295,6 +322,12 @@ with wave.open(wav, "wb") as w:
     w.writeframes((0.8 * 32767 * out / max(peak, 1e-9)).astype("<i2")
                   .tobytes())
 '''
+# (o): the stop groups' batch (4 groups of 16 in f32, 2 of 32 in bf16);
+# (o4)'s microbatches (B = TRAIN_CLIPS at A = O_ACCUM: one row each, so on
+# two ranks one rank owns none) and its target width, which bounds the
+# teacher-forced decode's steps.
+O_CLIPS, O_ACCUM, O_WIDTH = 64, 4, 64
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data sheet: HBM 3.35 TB/s; dense TF32 tensor cores 494.7 TFLOP/s.
 HBM_BYTES_PER_S, TF32_FLOP_PER_S = 3.35e12, 494.7e12
 
@@ -347,12 +380,13 @@ def phase_kernel_vs_plain(torch, tvqt, launches_of):
         return pcm16_noise(shape, seed).astype(np.float32) / PCM16_SCALE
 
     # Serving shapes, then (g2)'s batch and microbatch, then one full clip
-    # (frontend_ab's side B and Transcriber.spectrogram), then every other
-    # power of two the server pads a dynamic batch of at most N_MAX_BATCH
-    # to ((n3)); 16 x 12 s last, as it is timed below.
+    # (frontend_ab's side B, Transcriber.spectrogram, (o4)'s microbatch),
+    # then every other power of two the server pads a dynamic batch of at
+    # most N_MAX_BATCH to ((n3)), then (o1)'s batch of O_CLIPS; 16 x 12 s
+    # last, as it is timed below.
     rows = [TRAIN_CLIPS, TRAIN_CLIPS // 2, 1]
     rows += [1 << i for i in range(N_MAX_BATCH.bit_length())
-             if 1 << i not in rows + [N_CLIPS]]
+             if 1 << i not in rows + [N_CLIPS]] + [O_CLIPS]
     cases = (((2, 48000), noise((2, 48000), 0.2, 0)),
              *(((b, CLIP_SAMPLES), pcm((b, CLIP_SAMPLES), 5 + i))
                for i, b in enumerate(rows)),
@@ -432,38 +466,53 @@ def decode_one(torch, tvqt, tr, audio):
         ("low_len", aux["lower_lengths"]))}
 
 
-def compare_decodes(ref, got, cfg, tol_logp, tol_margin, label):
-    """Hold ``got``'s greedy decode of one clip against ``ref``'s: the
-    time and key signature log-probs and each staff's log-probs within
-    ``tol_logp`` up to the first token divergence, which may only fall
-    where ``ref``'s top-2 log-prob margin is below ``tol_margin``; the
+def decode_diff(ref, got, cfg, row=0):
+    """How ``got``'s greedy decode of clip ``row`` differs from ``ref``'s:
+    the time and key signature log-probs and each staff's log-probs up to
+    the first token divergence (within the steps ``ref``'s staff ran); the
     bars after it are conditioned on other tokens and are not compared.
-    Returns (steps compared, max |difference|, first divergence)."""
-    steps, worst, diverged = 0, 0.0, None
+    Returns (steps compared, max |difference|, first divergence (bar,
+    staff, step) or None, the largest of ``ref``'s top-2 log-prob margins
+    at the divergences: one a staff, in the bar of the first)."""
+    steps, worst, diverged, margin = 0, 0.0, None, None
     for bar in range(cfg.max_bars):
         if diverged is not None:
             break
         for key_name in ("ts", "key"):
-            e = (got[key_name][0, bar] - ref[key_name][0, bar]).abs().max()
+            e = (got[key_name][row, bar]
+                 - ref[key_name][row, bar]).abs().max()
             worst = max(worst, e.item())
         for staff in ("up", "low"):
-            gt, rt = got[f"{staff}_tok"][0, bar], ref[f"{staff}_tok"][0, bar]
-            ran = int((ref[staff][0, bar].abs().sum(-1) > 0).sum())
+            gt = got[f"{staff}_tok"][row, bar]
+            rt = ref[f"{staff}_tok"][row, bar]
+            ran = int((ref[staff][row, bar].abs().sum(-1) > 0).sum())
             diff = (gt[:ran] != rt[:ran]).nonzero()
             first = int(diff[0]) if len(diff) else None
             stop = ran if first is None else first + 1
-            e = (got[staff][0, bar, :stop].float()
-                 - ref[staff][0, bar, :stop].float()).abs()
+            e = (got[staff][row, bar, :stop].float()
+                 - ref[staff][row, bar, :stop].float()).abs()
             worst = max(worst, e.max().item())
             steps += stop
             if first is not None:
-                top2 = ref[staff][0, bar, first].topk(2).values
-                margin = (top2[0] - top2[1]).item()
-                print(f"{label} tokens diverge at bar {bar} staff {staff} "
-                      f"step {first}: top-2 margin {margin:.3e}")
-                check(margin < tol_margin, f"{label} divergence only at a "
-                      "near-tie")
-                diverged = (bar, staff, first)
+                top2 = ref[staff][row, bar, first].topk(2).values
+                gap = (top2[0] - top2[1]).item()
+                margin = gap if margin is None else max(margin, gap)
+                diverged = diverged or (bar, staff, first)
+    return steps, worst, diverged, margin
+
+
+def compare_decodes(ref, got, cfg, tol_logp, tol_margin, label):
+    """Hold ``got``'s greedy decode of one clip against ``ref``'s
+    (``decode_diff``): log-probs within ``tol_logp`` up to the first token
+    divergence, which may only fall where ``ref``'s top-2 log-prob margin
+    is below ``tol_margin``. Returns (steps compared, max |difference|,
+    first divergence)."""
+    steps, worst, diverged, margin = decode_diff(ref, got, cfg)
+    if diverged is not None:
+        bar, staff, first = diverged
+        print(f"{label} tokens diverge at bar {bar} staff {staff} "
+              f"step {first}: top-2 margin {margin:.3e}")
+        check(margin < tol_margin, f"{label} divergence only at a near-tie")
     print(f"{label} decode: {steps} steps compared, max|difference| log-prob "
           f"{worst:.3e} (atol {tol_logp}); first divergence: {diverged}")
     check(steps > 0, f"{label} decode steps compared")
@@ -582,9 +631,10 @@ def phase_server(make_server, gpu, label="(f)", n_requests=3):
     check(not thread.is_alive(), "server thread stopped")
 
 
-def check_results(results, cfg, label):
-    """The target structures of a batch of N_CLIPS clips are well-formed."""
-    check(len(results) == N_CLIPS, f"{label} one result per clip")
+def check_results(results, cfg, label, n_clips=N_CLIPS):
+    """The target structures of a batch of ``n_clips`` clips are
+    well-formed."""
+    check(len(results) == n_clips, f"{label} one result per clip")
     for bars in results:
         check(len(bars) == cfg.max_bars, f"{label} bars per clip")
         for key, ts, lower, upper in bars:
@@ -717,6 +767,22 @@ def train_batch(cfg, i):
     from piano_a2s_tpu_torch.train.synthetic import audio_batch
     return audio_batch(cfg, TRAIN_CLIPS, CLIP_SAMPLES, seed=200 + i,
                        targets_seed=300 + i)
+
+
+def uneven_batch(cfg):
+    """(o4)'s global batch: TRAIN_CLIPS x 12 s of int16 noise, random
+    targets of at most O_WIDTH tokens a staff (the teacher-forced decode
+    runs to their width), row weights as the Trainer gives a padded last
+    batch: row 0 weighs 0, so microbatch 0's BatchNorm statistics take the
+    unweighted fallback, in which a stand-in row must count for nothing."""
+    import dataclasses
+
+    from piano_a2s_tpu_torch.train.synthetic import (pcm16_noise,
+                                                     random_targets)
+    narrow = dataclasses.replace(cfg, max_length=(O_WIDTH, O_WIDTH))
+    return dict(random_targets(narrow, TRAIN_CLIPS, 310),
+                audio=pcm16_noise((TRAIN_CLIPS, CLIP_SAMPLES), 210),
+                sample_weight=(np.arange(TRAIN_CLIPS) > 0).astype(np.float32))
 
 
 def dp_batch(cfg, i):
@@ -920,10 +986,11 @@ def fmt_diff(d):
 
 
 def train_dp_rank(argv):
-    """One rank of (j2): join the group, one data-parallel step with
-    accum_steps=2 on (g2)'s first batch (the global batch), save the loss
-    and the model state to OUT/rank<RANK>.pt and print a result line with
-    the seconds, the peak memory and the kernel's launches."""
+    """One rank of (j2) or (o4): join the group, one data-parallel step
+    with ACCUM microbatches on the global batch BATCH ("j2": (g2)'s first;
+    "o4": ``uneven_batch``), save the loss and the model state to
+    OUT/rank<RANK>.pt and print a result line with the seconds, the peak
+    memory and the kernel's launches."""
     import torch
 
     import piano_a2s_tpu_torch.models as tmodels
@@ -932,21 +999,21 @@ def train_dp_rank(argv):
     from piano_a2s_tpu_torch.ops import vqt as tvqt
     from piano_a2s_tpu_torch.ops.vqt_cuda import vqt_magnitude_cuda
 
-    rank, world, init, backend, device, out = argv
-    rank, world = int(rank), int(world)
+    rank, world, init, backend, device, out, accum, which = argv
+    rank, world, accum = int(rank), int(world), int(accum)
     dev = parallel.distributed_init(init_method=f"file://{init}", rank=rank,
                                     world_size=world, device=device,
                                     backend=backend, timeout_s=DP_TIMEOUT_S)
     cfg, model, _, optimizer, opts = full_width_training(
         tmodels, tstep, tvqt, dev)
-    t_dp, _ = tstep.make_train_steps(optimizer, accum_steps=2,
+    t_dp, _ = tstep.make_train_steps(optimizer, accum_steps=accum,
                                      group=torch.distributed.group.WORLD,
                                      **opts)
+    batch = dp_batch(cfg, 0) if which == "j2" else uneven_batch(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     vqt_magnitude_cuda.launches = 0
     t0 = time.monotonic()
-    res = t_dp(model, dp_batch(cfg, 0),
-               torch.Generator(dev).manual_seed(0), 0.7)
+    res = t_dp(model, batch, torch.Generator(dev).manual_seed(0), 0.7)
     torch.cuda.synchronize(dev)
     seconds = time.monotonic() - t0
     torch.save({"loss": float(res.loss),
@@ -961,17 +1028,22 @@ def train_dp_rank(argv):
     return 0
 
 
-def run_dp_ranks(torch, backend, devices, ref_state, ref_loss, before):
-    """(j2) ``len(devices)`` ranks of train_dp_rank as subprocesses over
-    ``backend``; each must exit 0, equal ``ref_*`` (world size 1) within
-    TOL_DP_RANKS and equal the others. Returns the ranks' result lines."""
+def run_dp_ranks(torch, backend, devices, ref_state, ref_loss, before,
+                 accum=2, which="j2"):
+    """(j2) or (o4) (``which``): ``len(devices)`` ranks of train_dp_rank as
+    subprocesses over ``backend``, ``accum`` microbatches a step; each
+    must exit 0, launch the kernel once a microbatch, equal ``ref_*``
+    (world size 1) within TOL_DP_RANKS and equal the others. Returns the
+    ranks' result lines."""
+    label = f"({which})"
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         init = os.path.join(tmp, "init")
         world = len(devices)
         procs = [subprocess.Popen(
             [sys.executable, DP_RANK_SCRIPT, "--train-dp-rank",
-             str(r), str(world), init, backend, devices[r], tmp],
+             str(r), str(world), init, backend, devices[r], tmp, str(accum),
+             which],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(world)]
         outs = []
@@ -986,31 +1058,31 @@ def run_dp_ranks(torch, backend, devices, ref_state, ref_loss, before):
         for r, (p, text) in enumerate(zip(procs, outs)):
             if p.returncode != 0:
                 print(text[-4000:])
-            check(p.returncode == 0, f"(j2) {backend} rank {r} exit code")
+            check(p.returncode == 0, f"{label} {backend} rank {r} exit code")
         results = [json.loads(line.split(" ", 1)[1]) for text in outs
                    for line in text.splitlines()
                    if line.startswith("DP_RANK_RESULT ")]
-        check(len(results) == world, f"(j2) {backend}: a result per rank")
+        check(len(results) == world, f"{label} {backend}: a result per rank")
         saved = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                             weights_only=True) for r in range(world)]
     for r, (res, sv) in enumerate(zip(results, saved)):
         d = state_diff(torch, sv["state"], ref_state, before)
         loss_err = abs(sv["loss"] - ref_loss) / abs(ref_loss)
-        print(f"(j2) {backend} rank {r} on {res['device']}: "
+        print(f"{label} {backend} rank {r} on {res['device']}: "
               f"{res['seconds']:.3f} s a step, peak {res['peak_gib']:.2f} "
               f"GiB, vqt launches {res['launches']}; loss {sv['loss']:.6f}; "
               f"against world size 1: loss {loss_err:.3e} relative, "
               f"parameters and BN buffers {fmt_diff(d)} (tolerance "
               f"{TOL_DP_RANKS} relative)")
         check(loss_err < TOL_DP_RANKS and d["rel"] < TOL_DP_RANKS,
-              f"(j2) {backend} rank {r} equals world size 1")
-        check(res["launches"] == 2, f"(j2) {backend} rank {r}: one vqt "
-              "launch per microbatch")
+              f"{label} {backend} rank {r} equals world size 1")
+        check(res["launches"] == accum, f"{label} {backend} rank {r}: one "
+              "vqt launch per microbatch")
     for r in range(1, world):
         check(saved[r]["loss"] == saved[0]["loss"] and all(
             torch.equal(saved[r]["state"][k], v)
             for k, v in saved[0]["state"].items()),
-            f"(j2) {backend} ranks 0 and {r} identical")
+            f"{label} {backend} ranks 0 and {r} identical")
     return results
 
 
@@ -2284,6 +2356,308 @@ def phase_prepare(torch, tvqt, kernel):
         return phase_prepare_train(torch, tmp, corpus, files, kernel)
 
 
+def greedy_outputs(torch, tr, audio, decode_chunk):
+    """``tr``'s frontend and greedy forward on a prepared batch, with
+    ``decode_chunk``; decode_one's outputs (the log-probs, tokens and
+    lengths) on the CPU."""
+    with torch.inference_mode():
+        ts, key, up, low, aux = tr.model(
+            tr._frontend(audio), decode_dtype=tr.decode_dtype,
+            decode_chunk=decode_chunk)
+    return {k: v.cpu() for k, v in (
+        ("ts", ts), ("key", key), ("up", up), ("low", low),
+        ("up_tok", aux["upper_tokens"]), ("low_tok", aux["lower_tokens"]),
+        ("up_len", aux["upper_lengths"]), ("low_len", aux["lower_lengths"]))}
+
+
+def decode_extents(out, rows):
+    """The steps each clip of ``rows`` ran, by staff: (clips, bars) counts
+    of its log-prob rows that are not all zero (a stop group's buffers
+    are zero after its stop)."""
+    return {staff: (out[staff][rows].abs().sum(-1) > 0).sum(-1)
+            for staff in ("up", "low")}
+
+
+def check_stop_groups(torch, tr, audio, cfg, tol_logp, tol_margin, label):
+    """(o1) ``tr``'s decode of the prepared batch ``audio`` at decode_chunk
+    "auto" against each stop group's clips decoded alone (one group).
+
+    The gate of the stop groups: every clip ran the same steps at every
+    bar and staff as alone (before the bar of a first token divergence in
+    its group, where the group's stop may move with it), so each group
+    stopped on its own. Its control: the one-group decode of the whole
+    batch (decode_chunk None) runs each group to the slowest group's step
+    and must fail that gate, on the bars it covers, in at least one
+    group. Per clip, a token
+    divergence may only fall where the lone decode's top-2 margin is below
+    ``tol_margin`` (None: below twice the group's largest log-prob
+    difference, the most by which two entries can move apart); a group
+    without one must give equal tokens, lengths and signatures outright.
+    Log-probs up to a divergence within ``tol_logp`` (None: a reading
+    only). Returns the steps each group ran, by (staff, bar)."""
+    from piano_a2s_tpu_torch.models.score_transcription import \
+        pick_decode_chunk
+    chunk = pick_decode_chunk("auto", len(audio), tr.decode_dtype)
+    check(chunk is not None and chunk < len(audio),
+          f"{label} {len(audio)} clips decode in stop groups")
+    out = greedy_outputs(torch, tr, audio, "auto")
+    one = greedy_outputs(torch, tr, audio, None)
+    groups = len(audio) // chunk
+    steps = {(staff, bar): [int((out[staff][g * chunk, bar].abs().sum(-1)
+                                 > 0).sum()) for g in range(groups)]
+             for staff in ("up", "low") for bar in range(cfg.max_bars)}
+    control = []
+    for g in range(groups):
+        rows = slice(g * chunk, (g + 1) * chunk)
+        alone = greedy_outputs(torch, tr, audio[rows], "auto")
+        mine = {k: v[rows] for k, v in out.items()}
+        diffs = [decode_diff(alone, mine, cfg, i) for i in range(chunk)]
+        worst = max(d[1] for d in diffs)
+        near = [(i, d[2], d[3]) for i, d in enumerate(diffs)
+                if d[2] is not None]
+        bars = min([where[0] for _, where, _ in near] + [cfg.max_bars])
+        lone = decode_extents(alone, slice(None))
+        got = decode_extents(mine, slice(None))
+        by_one = decode_extents(one, rows)
+        control.append([b for b in range(cfg.max_bars)
+                        if any(not torch.equal(by_one[st][:, b],
+                                               lone[st][:, b])
+                               for st in lone)])
+        same_steps = all(torch.equal(got[st][:, :bars], lone[st][:, :bars])
+                         for st in lone)
+        gap = (mine["up"] - alone["up"]).abs().flatten()
+        margin_tol = 2 * worst if tol_margin is None else tol_margin
+        gate = "a reading" if tol_logp is None else f"atol {tol_logp}"
+        gated = f"bars 0-{bars - 1}" if bars else "no bar"
+        print(f"{label} group {g} (clips {rows.start}-{rows.stop - 1}) "
+              f"against its clips alone: max|difference| log-prob "
+              f"{worst:.3e} ({gate}; the upper staff's largest "
+              f"{float(gap.max()):.3e} at a log-prob of "
+              f"{float(alone['up'].flatten()[gap.argmax()]):.3f}); "
+              f"divergences (clip, (bar, staff, step), top-2 margin; "
+              f"tolerance {margin_tol:.3e}): {near or 'none'}; steps "
+              f"equal to alone over {gated}: {same_steps}; the one-group "
+              f"decode's steps differ in bars {control[-1] or 'none'}")
+        control[-1] = any(b < bars for b in control[-1])
+        if tol_logp is not None:
+            check(worst < tol_logp, f"{label} group {g} log-probs agree")
+        check(same_steps,
+              f"{label} group {g} ran the steps its clips run alone")
+        for i, where, margin in near:
+            check(margin < margin_tol, f"{label} group {g} clip {i} "
+                  f"diverges at {where} only at a near-tie")
+        if not near:
+            check(all(torch.equal(alone[k], mine[k]) for k in
+                      ("up_tok", "low_tok", "up_len", "low_len"))
+                  and all(torch.equal(alone[k].argmax(-1),
+                                      mine[k].argmax(-1))
+                          for k in ("ts", "key")),
+                  f"{label} group {g}: tokens, lengths and signatures "
+                  "equal outright")
+    print(f"{label} steps each stop group of {chunk} ran, by (staff, bar): "
+          + "; ".join(f"{staff} bar {bar} {v}"
+                      for (staff, bar), v in steps.items()))
+    check(any(control), f"{label} control: the one-group decode fails the "
+          f"stop-step gate in some group ({sum(control)} of {groups})")
+    print(f"{label} control: the one-group decode fails the stop-step gate "
+          f"in {sum(control)} of {groups} groups")
+    return steps
+
+
+def stop_group_clips(memorized_audio):
+    """(o1)'s O_CLIPS clips, four runs of 16: (k)'s memorized clips tiled;
+    8 memorized clips and 8 noise of std 0.1; noise of std 0.1; noise of
+    std 0.01. The memorized clips end their bars later than noise, so the
+    f32 groups (the runs) and the bf16 groups (the halves) stop apart."""
+    mem = list(memorized_audio)
+
+    def tiled(n):
+        return [mem[i % len(mem)] for i in range(n)]
+
+    def noisy(n, amp, seed):
+        return [noise((CLIP_SAMPLES,), amp, seed + i) for i in range(n)]
+
+    return (tiled(16) + tiled(8) + noisy(8, 0.1, 420) + noisy(16, 0.1, 400)
+            + noisy(16, 0.01, 440))
+
+
+def phase_stop_groups(torch, Transcriber, state_dict, cfg, memorized_audio,
+                      kernel):
+    """(o1) The decode's stop groups at full width with (k3)'s weights on
+    O_CLIPS clips: the path, transcribe_batch of the 64 clips at the
+    default decode_chunk "auto" in f32 (4 groups of 16) and bf16 (2 of 32),
+    one kernel launch a call (its count zeroed just before); each group
+    against its clips alone (``check_stop_groups``), f32 groups stopping
+    at different steps; then clips/s of "auto" and None in turns, and how
+    many clips differ between the two. Returns the path's launches."""
+    clips = stop_group_clips(memorized_audio)
+    f32 = Transcriber(state_dict, cfg, device="cuda")
+    bf16 = Transcriber(state_dict, cfg, device="cuda",
+                       decode_dtype=torch.bfloat16)
+    check(f32.decode_chunk == "auto", "(o1) the Transcriber's default")
+    audio, n = f32.prepare_batch(clips)
+    check(n == len(audio) == O_CLIPS, "(o1) a batch of 64, no padding")
+    for tr in (f32, bf16):
+        tr.transcribe_batch(clips)  # first call at this shape
+    kernel.launches = 0
+    results = {"f32": f32.transcribe_batch(clips),
+               "bf16": bf16.transcribe_batch(clips)}
+    launches = kernel.launches
+    print(f"(o1) transcribe_batch of {O_CLIPS} clips in f32 and bf16: vqt "
+          f"kernel launches {launches}")
+    check(launches == 2, "(o1) one vqt launch a batch")
+    for name, res in results.items():
+        check_results(res, cfg, f"(o1) {name}", O_CLIPS)
+    steps = check_stop_groups(torch, f32, audio, cfg, TOL_LOGP, TOL_MARGIN,
+                              "(o1) f32")
+    check(any(len(set(v)) > 1 for v in steps.values()),
+          "(o1) the f32 stop groups stop at different steps")
+    check_stop_groups(torch, bf16, audio, cfg, None, None, "(o1) bf16")
+    one = Transcriber(state_dict, cfg, device="cuda", decode_chunk=None)
+    one.transcribe_batch(clips)  # first call at this shape
+    turns, outs = {"auto": [], "None": []}, {}
+    for name, tr in (("auto", f32), ("None", one), ("None", one),
+                     ("auto", f32)):
+        t0 = time.monotonic()
+        outs[name] = tr.transcribe_batch(clips)
+        turns[name].append(time.monotonic() - t0)
+    rate = {k: O_CLIPS / float(np.median(v)) for k, v in turns.items()}
+    differ = sum(a != b for a, b in zip(outs["auto"], outs["None"]))
+    print(f"(o1) f32 transcribe_batch of {O_CLIPS} clips in turns auto, "
+          f"None, None, auto: "
+          + ", ".join(f"{k} {[round(t, 3) for t in v]} s ({rate[k]:.2f} "
+                      f"clips/s)" for k, v in turns.items())
+          + f"; auto / None {rate['auto'] / rate['None']:.3f}; clips whose "
+          f"results differ between the two: {differ} of {O_CLIPS}")
+    return launches
+
+
+def phase_export(tmodels, tstep, load_transcriber, state_dict,
+                 memorized_audio, tmp):
+    """(o2) (k3)'s weights in a save folder (as (n) saves them), through
+    cli.export_checkpoint, then cli.import_checkpoint, then
+    load_transcriber, with and without --modulelist: the weights bit-equal
+    to the save folder's (num_batches_tracked aside: the export writes 0)
+    and the tokens of (k)'s clips equal."""
+    from piano_a2s_tpu_torch.cli import export_checkpoint, import_checkpoint
+    config = os.path.join(REPO_DIR, "configs", "pretrain.yaml")
+    save = save_folder_of(tmodels, tstep, state_dict,
+                          os.path.join(tmp, "save"))
+    ref = load_transcriber(save, device="cuda")
+    want = ref.transcribe_batch(memorized_audio)
+    weights = {k: v for k, v in ref.model.state_dict().items()
+               if not k.endswith("num_batches_tracked")}
+    for flags in ([], ["--modulelist"]):
+        name = "".join(flags) or "bare"
+        out = os.path.join(tmp, f"export{name}")
+        again = os.path.join(tmp, f"import{name}")
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            check(export_checkpoint.main([save, "--config", config, "--out",
+                                          out] + flags) == 0,
+                  f"(o2) export {name}")
+            check(import_checkpoint.main([out, "--config", config, "--out",
+                                          again]) == 0, f"(o2) import {name}")
+        seconds = time.monotonic() - t0
+        tr = load_transcriber(again, device="cuda")
+        got = tr.model.state_dict()
+        equal = sum(int(same_state({k: got[k]}, {k: v}))
+                    for k, v in weights.items())
+        same = tr.transcribe_batch(memorized_audio) == want
+        print(f"(o2) export ({name}) then import in {seconds:.2f} host s, "
+              f"{os.path.getsize(os.path.join(out, 'model.ckpt'))} bytes: "
+              f"{equal}/{len(weights)} tensors bit-equal; tokens of "
+              f"{len(memorized_audio)} clips equal {same}; the commands "
+              f"printed {len(text.getvalue().splitlines())} lines")
+        check(equal == len(weights), f"(o2) {name}: weights bit-equal")
+        check(same, f"(o2) {name}: the same tokens")
+
+
+def phase_entry(torch, Transcriber, tmodels):
+    """(o3) entry() on the card: the output shapes, the seconds of its
+    set-up and of one forward, and its tokens and signatures equal to
+    Transcriber._infer_spectrogram's on the same weights and
+    spectrogram; then ``python -m piano_a2s_tpu_torch.entry multichip 2``
+    (two ranks sharing the card) must exit 0."""
+    from piano_a2s_tpu_torch.entry import entry
+    cfg = tmodels.ModelConfig()
+    t0 = time.monotonic()
+    fn, args = entry()
+    setup_s = time.monotonic() - t0
+    runs = []
+    for _ in range(2):
+        t0 = time.monotonic()
+        with torch.inference_mode():
+            outs = fn(*args)
+        torch.cuda.synchronize()
+        runs.append(time.monotonic() - t0)
+    shapes = [tuple(x.shape) for x in outs]
+    print(f"(o3) entry(): set-up {setup_s:.2f} s, forward {runs[0]:.2f} s "
+          f"then {runs[1]:.2f} s; outputs {shapes}")
+    check(shapes == [(1, 5, 7), (1, 5, 14), (1, 5, 398), (1, 5, 189)],
+          "(o3) entry's output shapes")
+    tr = Transcriber(tmodels.init_state_dict(cfg, 0), cfg, device="cuda")
+    ts, key, up, low, _, _ = tr._infer_spectrogram(args[1])
+    check(torch.equal(outs[0].argmax(-1).to(torch.uint8), ts)
+          and torch.equal(outs[1].argmax(-1).to(torch.uint8), key)
+          and torch.equal(outs[2].to(torch.uint8), up)
+          and torch.equal(outs[3].to(torch.uint8), low),
+          "(o3) entry's tokens equal Transcriber._infer_spectrogram's")
+    # The multi-rank dry run, as a user starts it: two gloo ranks sharing
+    # the card, each through the tiny train steps (f32, bf16, from audio
+    # with the kernel, guided attention) and the eval step.
+    t0 = time.monotonic()
+    run = subprocess.run(
+        [sys.executable, "-m", "piano_a2s_tpu_torch.entry", "multichip",
+         "2"], capture_output=True, text=True, timeout=DP_TIMEOUT_S,
+        cwd=REPO_DIR)
+    if run.returncode != 0:
+        print(run.stdout[-4000:] + run.stderr[-4000:])
+    print(f"(o3) entry multichip 2 on the card: exit {run.returncode} in "
+          f"{time.monotonic() - t0:.1f} s; {run.stdout.strip()[-200:]}")
+    check(run.returncode == 0
+          and "dryrun_multichip(2) on cuda OK" in run.stdout,
+          "(o3) the two-rank dry run on the card")
+
+
+def phase_uneven_dp(torch, tmodels, tstep, tvqt):
+    """(o4) The data-parallel step on a batch whose microbatches do not
+    split over the ranks: ``uneven_batch`` (B = TRAIN_CLIPS) at A =
+    O_ACCUM, one row a microbatch, on two gloo ranks on cuda:0 (rank 0
+    owns no row and computes stand-in rows that weigh 0 and count in no
+    BatchNorm statistic; row 0 weighs 0), against the plain
+    train_step_accum (world size 1) within TOL_DP_RANKS, the ranks
+    identical. Returns the ranks' kernel launches (one a microbatch)."""
+    from piano_a2s_tpu_torch import parallel
+    cfg, model, before, optimizer, opts = full_width_training(
+        tmodels, tstep, tvqt)
+    t_plain, _ = tstep.make_train_steps(optimizer, accum_steps=O_ACCUM,
+                                        **opts)
+    t0 = time.monotonic()
+    ref = t_plain(model, uneven_batch(cfg),
+                  torch.Generator("cuda").manual_seed(0), 0.7)
+    torch.cuda.synchronize()
+    plain_s = time.monotonic() - t0
+    ref_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    layout = [parallel.step_rows(r, 2, TRAIN_CLIPS, O_ACCUM)
+              for r in range(2)]
+    print(f"(o4) B={TRAIN_CLIPS}, A={O_ACCUM}, N=2: each rank's rows, "
+          f"offset in a microbatch and whether it owns them "
+          f"{[(rows.tolist(), start, owned) for rows, start, owned in layout]}"
+          f"; the plain step {plain_s:.3f} s, loss {float(ref.loss):.6f}")
+    check(not all(owned for _, _, owned in layout),
+          "(o4) one rank owns no row")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    results = run_dp_ranks(torch, "gloo", ["cuda:0"] * 2, ref_state,
+                           float(ref.loss), before, O_ACCUM, "o4")
+    print(f"(o4) 2 ranks over gloo on cuda:0: {time.monotonic() - t0:.1f} s "
+          f"with start-up")
+    return sum(r["launches"] for r in results)
+
+
 def main():
     t_main = time.monotonic()
     import torch
@@ -2431,6 +2805,37 @@ def main():
             memorized_state, vqt_magnitude_cuda))
         print(f"(n) took {time.monotonic() - t_n:.1f} s")
 
+        # (o) the port's last gaps: (o1) the stop groups, the path
+        # serve_chunked, zeroing the counts just before it; (o2) the
+        # export round trip, on (k)'s clips and (k3)'s weights.
+        t_o = time.monotonic()
+        audio_dir = os.path.join(corpus, "test", "0", "audio")
+        memorized_audio = [np.load(os.path.join(audio_dir, f))
+                           for f in sorted(os.listdir(audio_dir))]
+        launches["serve_chunked"] = phase_stop_groups(
+            torch, Transcriber, memorized_state, ModelConfig(),
+            memorized_audio, vqt_magnitude_cuda)
+        print(f"(o1) took {time.monotonic() - t_o:.1f} s")
+        t_o2 = time.monotonic()
+        with tempfile.TemporaryDirectory(prefix="export_") as tmp:
+            phase_export(tmodels, tstep, load_transcriber, memorized_state,
+                         memorized_audio, tmp)
+        print(f"(o2) took {time.monotonic() - t_o2:.1f} s")
+
+    # (o3) entry() on the card; (o4) the data-parallel step whose
+    # microbatches do not split over the ranks, its ranks' launches added
+    # to the data-parallel path's.
+    t_o3 = time.monotonic()
+    phase_entry(torch, Transcriber, tmodels)
+    print(f"(o3) took {time.monotonic() - t_o3:.1f} s")
+    gc.collect()
+    t_o4 = time.monotonic()
+    uneven = phase_uneven_dp(torch, tmodels, tstep, tvqt)
+    launches["train_dp"] += uneven
+    print(f"(o4) vqt kernel launches over the ranks: {uneven}; (o4) took "
+          f"{time.monotonic() - t_o4:.1f} s; (o) took "
+          f"{time.monotonic() - t_o:.1f} s")
+
     # (m) the score-to-corpus path: the corpus (m1) and its spectrograms
     # against the kernel (m2), then one epoch (m3), the path, zeroing the
     # counts just before it.
@@ -2442,8 +2847,8 @@ def main():
     check(not any(m == "piano_a2s_tpu" or m.startswith("piano_a2s_tpu.")
                   for m in sys.modules), "nothing of the JAX package imported")
 
-    check(len(launches) == 13 and min(launches.values()) > 0,
-          f"every one of the 13 paths launched the vqt kernel: {launches}")
+    check(len(launches) == 14 and min(launches.values()) > 0,
+          f"every one of the 14 paths launched the vqt kernel: {launches}")
     bound_ms, bound_by = vqt_bound(N_CLIPS, CLIP_SAMPLES)
     print(f"chip_smoke: every phase passed in {time.monotonic() - t_main:.1f}"
           f" s")

@@ -34,7 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..parallel import local_rows
+from ..parallel import step_rows
 from ..symbolic.vocab import LabelsMultiple
 
 _METADATA_DIR = os.path.join(os.path.dirname(__file__), "metadata")
@@ -308,11 +308,13 @@ class DataLoader:
     length bucketing and the cross-host batch contract a pure function of
     global state), but loads SPECTROGRAMS (the heavy IO) only for its own
     rows. The batch then carries "local_rows", the index array of those
-    rows, and a (batch/world)-row feature array. The rows are
-    ``parallel.local_rows(rank, world, batch_size, accum_steps)``: with
-    gradient accumulation each rank owns its slice of every microbatch;
-    with accum_steps=1 the contiguous range the JAX package's loader reads.
-    The data-parallel Trainer (use_mesh=True) checks them against its own.
+    rows, and a feature array of those rows. The rows are the ones the
+    rank computes, ``parallel.step_rows(rank, world, batch_size,
+    accum_steps)``: with gradient accumulation each rank owns its slice of
+    every microbatch (or, where a microbatch has fewer rows than there are
+    ranks and it owns none, a stand-in row of each); with accum_steps=1
+    the contiguous range the JAX package's loader reads. The data-parallel
+    Trainer (use_mesh=True) checks them against its own.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
@@ -334,11 +336,11 @@ class DataLoader:
             if not (0 <= rank < world):
                 raise ValueError(f"bad shard {shard}")
             if world > 1:
-                if batch_size % (world * accum_steps):
+                if batch_size % world or batch_size % accum_steps:
                     raise ValueError(
-                        f"the {world}-process world times accum_steps="
-                        f"{accum_steps} must divide batch_size={batch_size} "
-                        f"for per-host loading")
+                        f"the world size ({world}) and accum_steps "
+                        f"({accum_steps}) must divide batch_size="
+                        f"{batch_size} for per-host loading")
                 if not pad_final_batch:
                     raise ValueError("per-host sharded loading requires "
                                      "pad_final_batch (static row ranges)")
@@ -381,7 +383,7 @@ class DataLoader:
             return s_cache[loc]
 
         targets = [load_t(loc) for loc in locators]
-        rows = local_rows(rank, world, self.batch_size, self.accum_steps)
+        rows = step_rows(rank, world, self.batch_size, self.accum_steps)[0]
         specs = [load_s(locators[i]) for i in rows]
         batch = {k: np.stack([t[k] for t in targets])
                  for k in ("time_sig", "key", "upper", "upper_lengths",

@@ -15,6 +15,13 @@ the batch cut into contiguous equal shards, each shard's whole forward on
 its own device, one shard after another. The shards share nothing and stop
 their decodes each on its own, as the JAX package's shard_map does; on a
 model that is sure of its EOS the results equal one device's.
+
+Stop groups (``decode_chunk``, default "auto" as in the JAX package): a
+batch above 16 clips (32 under bfloat16) decodes in groups of that many
+clips (a divisor of the batch; ``pick_decode_chunk``), each with its own
+batch-coupled early exit, in one loop. On a model that is not sure of its
+EOS a clip's tokens depend on its stop group's mates, as they depend on
+its batch's; batches of 16 or fewer are one group.
 """
 
 from __future__ import annotations
@@ -56,13 +63,17 @@ class Transcriber:
     as ``devices=["cpu"] * k``). A device may repeat: ``["cuda:0",
     "cuda:0"]`` runs two shards on one card. Batches are padded to a
     multiple of the device count.
+
+    ``decode_chunk`` (None, an int or "auto"): the decode's stop groups
+    (see the module docstring), picked against each shard's own rows on
+    the mesh; None decodes every batch as one group.
     """
 
     def __init__(self, state_dict, cfg: ModelConfig = ModelConfig(),
                  vqt_cfg: VQTConfig = VQTConfig(),
                  max_frame_num: int = 1201, device="cuda",
                  decode_dtype: Optional[torch.dtype] = None,
-                 use_mesh: bool = False, devices=None):
+                 use_mesh: bool = False, devices=None, decode_chunk="auto"):
         if decode_dtype not in (None, torch.bfloat16):
             raise ValueError(f"decode_dtype={decode_dtype}: supported "
                              "values are None (float32) and torch.bfloat16")
@@ -85,6 +96,7 @@ class Transcriber:
         self.devices = devices
         use_full_float32()
         self.decode_dtype = decode_dtype
+        self.decode_chunk = decode_chunk
         self.cfg = cfg
         self.vqt_cfg = vqt_cfg
         self.max_frame_num = max_frame_num
@@ -139,7 +151,8 @@ class Transcriber:
         spec = torch.as_tensor(spec, dtype=torch.float32).to(
             self.devices[shard])
         ts, key, _, _, aux = self._shards[shard][0](
-            spec, decode_dtype=self.decode_dtype)
+            spec, decode_dtype=self.decode_dtype,
+            decode_chunk=self.decode_chunk)
         return (ts.argmax(-1).to(torch.uint8), key.argmax(-1).to(torch.uint8),
                 aux["upper_tokens"].to(torch.uint8),
                 aux["lower_tokens"].to(torch.uint8),
@@ -302,13 +315,13 @@ def load_transcriber(checkpoint: Optional[str] = None,
                      vqt_cfg: VQTConfig = VQTConfig(),
                      seed: int = 0, max_frame_num: int = 1201,
                      device="cuda",
-                     decode_dtype: Optional[torch.dtype] = None
-                     ) -> Transcriber:
+                     decode_dtype: Optional[torch.dtype] = None,
+                     decode_chunk="auto") -> Transcriber:
     """A Transcriber from ``checkpoint``: a torch checkpoint file
     (.ckpt/.pt/.pth), a save folder of the port's training commands (its
     best checkpoint by WER), one ``CKPT+...`` directory of such a folder,
     or, with checkpoint=None, random weights drawn from ``seed``.
-    ``decode_dtype``: see Transcriber."""
+    ``decode_dtype``, ``decode_chunk``: see Transcriber."""
     if checkpoint is None:
         state_dict = init_state_dict(cfg, seed)
     elif os.path.isdir(checkpoint):
@@ -321,7 +334,8 @@ def load_transcriber(checkpoint: Optional[str] = None,
             "(.ckpt/.pt/.pth) and the save folders of its own training "
             "commands")
     return Transcriber(state_dict, cfg, vqt_cfg, max_frame_num=max_frame_num,
-                       device=device, decode_dtype=decode_dtype)
+                       device=device, decode_dtype=decode_dtype,
+                       decode_chunk=decode_chunk)
 
 
 def load_saved_model(path: str) -> Dict[str, torch.Tensor]:
@@ -336,7 +350,9 @@ def load_saved_model(path: str) -> Dict[str, torch.Tensor]:
             "CKPT+*/ directories holding model.pt and meta.json, or one "
             "such directory). Orbax save folders, written by the JAX "
             "package, need jax to read; export one to a torch file with "
-            "scripts/export_reference_checkpoint.py")
+            "scripts/export_reference_checkpoint.py (a save folder of the "
+            "port exports to the reference format with python -m "
+            "piano_a2s_tpu_torch.cli.export_checkpoint)")
     trees, _, _ = Checkpointer(os.path.dirname(path)).load(path, ("model",))
     return trees["model"]
 

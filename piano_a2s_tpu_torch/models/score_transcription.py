@@ -20,9 +20,10 @@ state is the modules' running buffers, which a training forward writes in
 place.
 
 Data parallelism (``group``, a torch.distributed process group whose ranks
-each hold their rows of the batch): the training forward takes the global
-batch's BatchNorm statistics, draws its dropout masks at the global
-batch's shape and keeps its rows, and takes the decode's batch-coupled
+each hold their rows of the batch, ``rows`` placing them): the training
+forward takes the global batch's BatchNorm statistics, draws its dropout
+masks at the global batch's shape and keeps its rows, and takes the
+decode's batch-coupled
 stop step over every rank's targets; the greedy decode stops when every
 rank's items have stopped. So N ranks compute what one rank computes on
 the joined rows, as the JAX package's one program over a device mesh
@@ -56,15 +57,18 @@ def _cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 def _dropout(x: torch.Tensor, rate: float, train: bool,
              generator: Optional[torch.Generator], group,
-             axis: int = 0) -> torch.Tensor:
+             axis: int = 0,
+             rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """L.dropout of x, whose batch axis is ``axis``; under ``group`` x is
-    this rank's rows and the mask is cut from the global batch's."""
+    this rank's rows and the mask is cut from the global batch's: the rows
+    [start, start + B) of ``total`` for ``rows`` = (start, total), or by
+    default the rank's equal share."""
     if group is None:
         return L.dropout(x, rate, train, generator)
     b = x.shape[axis]
-    return L.dropout(x, rate, train, generator,
-                     rows=(axis, dist.get_rank(group) * b,
-                           dist.get_world_size(group) * b))
+    start, total = rows or (dist.get_rank(group) * b,
+                            dist.get_world_size(group) * b)
+    return L.dropout(x, rate, train, generator, rows=(axis, start, total))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +139,10 @@ class ConvStack(nn.Module):
                       sample_weight: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       compute_dtype: Optional[torch.dtype] = None,
-                      group=None) -> torch.Tensor:
+                      group=None,
+                      rows: Optional[Tuple[int, int]] = None,
+                      counted: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
         """Train: x (B, C_in, T, F) -> (B, T, conv_feature_size).
 
         Conv, BatchNorm on the batch statistics (weighted by
@@ -153,14 +160,18 @@ class ConvStack(nn.Module):
 
         ``group`` (data parallelism): x is this rank's rows; all five
         BatchNorms take the global batch's statistics and the dropout mask
-        is this rank's rows of the global one.
+        is this rank's rows of the global one (at ``rows``, see _dropout).
+        ``counted`` (B,) 0/1: the rows the BatchNorm statistics count when
+        every weight is 0 (default all; 0 marks a data-parallel stand-in).
         """
         def bn_relu(y, bn, axes):
             if compute_dtype is None:
                 return F.relu(L.batch_norm_train(y, bn, axes=axes,
                                                  weight=sample_weight,
-                                                 group=group))
-            return L.batch_norm_relu_train(y, bn, axes, sample_weight, group)
+                                                 group=group,
+                                                 counted=counted))
+            return L.batch_norm_relu_train(y, bn, axes, sample_weight, group,
+                                           counted)
 
         y = _cast(x, compute_dtype)
         for i in range(1, 5):
@@ -170,7 +181,7 @@ class ConvStack(nn.Module):
         y = y.permute(0, 2, 1, 3).reshape(bsz, t, c * f)
         y = L.linear(y, self.out.weight.to(y.dtype), self.out.bias)
         y = bn_relu(y, self.out_bn, (0, 1))
-        return _dropout(y, 0.2, True, generator, group)
+        return _dropout(y, 0.2, True, generator, group, rows=rows)
 
 
 class Encoder(nn.Module):
@@ -294,7 +305,8 @@ def _fast_step(p: DualDecodeParams, enc: torch.Tensor,
 
 def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
                             enc: torch.Tensor, enc_proj2: torch.Tensor,
-                            h0: torch.Tensor, group=None):
+                            h0: torch.Tensor, group=None,
+                            chunk: Optional[int] = None):
     """Greedy decode of both staves with the reference's early exit.
 
     Staff s steps while t < its cap and not every batch item has emitted
@@ -305,11 +317,20 @@ def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
     items still decoding is all-reduced each step, so all ranks stop at
     the same step, as the JAX package's one loop over the global batch.
 
+    ``chunk`` (a divisor of B; ``pick_decode_chunk``; None under
+    ``group``) makes each run of ``chunk`` rows a stop group of its own: a staff's rows of one group
+    step until every item of that group has emitted EOS, and their buffers
+    stay zero after. This is the JAX package's chunked decode (one decode
+    loop per group), in one loop over the whole batch: the loop ends when
+    no group of either staff is active, the step at which the slowest
+    group stops, and the host reads a (2, groups) flag a step.
+
     Returns per staff (logp (B, T_s, V), tokens (B, T_s), lengths (B,)).
     """
     B, dev = enc.shape[0], enc.device
     caps = tuple(cfg.max_length)
     T = max(caps)
+    n_groups = B // chunk if chunk else 1
     logps = torch.zeros((T, 2, B, cfg.vocab_size),
                         dtype=L.float32_or_wider(enc.dtype), device=dev)
     preds = torch.zeros((T, 2, B), dtype=torch.long, device=dev)
@@ -321,30 +342,53 @@ def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
     masks = {}
     for t in range(T):
         if group is None:
-            all_done = done.all(dim=1).tolist()
+            group_done = done.reshape(2, n_groups, -1).all(dim=2).tolist()
         else:
             left = (~done).sum(dim=1)
             dist.all_reduce(left, group=group)
-            all_done = (left == 0).tolist()
-        act = tuple(t < caps[s] and not all_done[s] for s in range(2))
-        if not any(act):
+            group_done = (left == 0)[:, None].tolist()
+        act = tuple(tuple(t < caps[s] and not d for d in group_done[s])
+                    for s in range(2))
+        if not any(map(any, act)):
             break
         if act not in masks:
-            masks[act] = torch.tensor(act, device=dev)
+            masks[act] = torch.tensor(act, device=dev).repeat_interleave(
+                B // n_groups, dim=1)                            # (2, B)
         m = masks[act]
         h2_new, logp2, pred2 = _fast_step(p, enc, enc_proj2, h2, tok2)
-        h2 = torch.where(m[:, None, None], h2_new, h2)
-        logps[t] = torch.where(m[:, None, None], logp2, 0.0)
-        preds[t] = torch.where(m[:, None], pred2, 0)
-        is_eos = (pred2 == cfg.eos) & m[:, None]
+        h2 = torch.where(m[:, :, None], h2_new, h2)
+        logps[t] = torch.where(m[:, :, None], logp2, 0.0)
+        preds[t] = torch.where(m, pred2, 0)
+        is_eos = (pred2 == cfg.eos) & m
         lengths = torch.where(is_eos, t + 1, lengths)
         done = done | is_eos
-        tok2 = torch.where(m[:, None, None], _tok_proj(p, pred2), tok2)
+        tok2 = torch.where(m[:, :, None], _tok_proj(p, pred2), tok2)
     out = []
     for s, cap in enumerate(caps):
         out.append((logps[:cap, s].transpose(0, 1),
                     preds[:cap, s].transpose(0, 1), lengths[s]))
     return tuple(out)
+
+
+def pick_decode_chunk(decode_chunk, batch: int,
+                      decode_dtype: Optional[torch.dtype] = None
+                      ) -> Optional[int]:
+    """The stop group size of a greedy decode of ``batch`` rows, or None
+    for one group, by the JAX package's rules (its pick_decode_chunk):
+    None, 0 and False mean one group; "auto" means 32 under
+    torch.bfloat16 and 16 otherwise; a batch at or under the chunk is one
+    group; otherwise the chunk steps down to a divisor of the batch, and a
+    result of 1 means one group (24 rows at 16 give 12; 17 give None)."""
+    if decode_chunk in (None, 0, False):
+        return None
+    if decode_chunk == "auto":
+        decode_chunk = 32 if decode_dtype == torch.bfloat16 else 16
+    chunk = int(decode_chunk)
+    if batch <= chunk:
+        return None
+    while batch % chunk:
+        chunk -= 1
+    return chunk if chunk > 1 else None
 
 
 # ---------------------------------------------------------------------------
@@ -499,7 +543,8 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
                            ga_sigma: float = 0.15,
                            ga_dur_frac: Optional[torch.Tensor] = None,
                            ga_content: Optional[torch.Tensor] = None,
-                           ga_map: str = "auto", group=None):
+                           ga_map: str = "auto", group=None,
+                           rows: Optional[Tuple[int, int]] = None):
     """Teacher-forced decode of one bar, both staves in one loop of
     max(T_up, T_low) steps, each staff's cap T_s the width of its ground
     truth ``gt_up`` (B, T_up) and ``gt_low`` (B, T_low); the narrower
@@ -527,7 +572,7 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
     gradient and is computed for all steps at once. Returns ((up_logp,
     up_tok), (low_logp, low_tok), ga_num (2, B) float32 or None).
     ``group``: the token dropout masks are this rank's rows of the global
-    batch's (the coins are per step, shared by the batch).
+    batch's, at ``rows`` (the coins are per step, shared by the batch).
     """
     B, dev = enc.shape[0], enc.device
     t_up, t_low = gt_up.shape[1], gt_low.shape[1]
@@ -540,7 +585,7 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
     if train:
         drops = _dropout(torch.ones((T,) + tok2.shape, device=dev,
                                     dtype=L.float32_or_wider(tok2.dtype)),
-                         0.1, train, generator, group, axis=2)
+                         0.1, train, generator, group, axis=2, rows=rows)
     coins = torch.rand((T, 2), generator=generator, device=dev) < tf_ratio
     guides = None
     if ga_frac is not None:
@@ -649,7 +694,8 @@ class HierarchicalDecoder(nn.Module):
         return _cast(enc, decode_dtype), _cast(enc_proj2, decode_dtype)
 
     def forward(self, enc: torch.Tensor, hidden: torch.Tensor,
-                decode_dtype: Optional[torch.dtype] = None, group=None):
+                decode_dtype: Optional[torch.dtype] = None, group=None,
+                decode_chunk=None):
         """Greedy decode of max_bars bars (no ground truth).
 
         Returns (time_sig_logp (B, bars, 7), key_logp (B, bars, 14),
@@ -662,10 +708,15 @@ class HierarchicalDecoder(nn.Module):
         log-softmaxes, and the emitted log-probs, stay float32. The bar
         level (attention, GRU, heads, staff summaries) stays float32.
         ``group``: the note decoders stop on every rank's items
-        (note_decoder_dual_infer).
+        (note_decoder_dual_infer). ``decode_chunk`` (None, an int or
+        "auto"; ``pick_decode_chunk`` against B): the note decoders stop
+        in groups of that many rows; ignored under ``group``, as the JAX
+        package ignores it under a mesh.
         """
         cfg = self.cfg
         B, dev = enc.shape[0], enc.device
+        chunk = (None if group is not None
+                 else pick_decode_chunk(decode_chunk, B, decode_dtype))
         enc_proj_bar = A.precompute_enc_proj(self.attn, enc)
         enc_dec, enc_proj2 = self._note_operands(enc, decode_dtype)
         dual = dual_decode_params(self.upper_decoder, self.lower_decoder,
@@ -683,7 +734,8 @@ class HierarchicalDecoder(nn.Module):
             hidden = bar_summary
             (up_logp, up_tok, up_len), (low_logp, low_tok, low_len) = \
                 note_decoder_dual_infer(dual, cfg, enc_dec, enc_proj2,
-                                        bar_summary.to(enc_dec.dtype), group)
+                                        bar_summary.to(enc_dec.dtype), group,
+                                        chunk)
             head_in = torch.cat([bar_summary, context], dim=-1)
             ts_logp = torch.log_softmax(self.time_sig_out(head_in), dim=-1)
             key_logp = torch.log_softmax(self.key_out(head_in), dim=-1)
@@ -716,7 +768,8 @@ class HierarchicalDecoder(nn.Module):
                                ga_content: Optional[torch.Tensor] = None,
                                ga_map: str = "auto",
                                decode_dtype: Optional[torch.dtype] = None,
-                               group=None):
+                               group=None,
+                               rows: Optional[Tuple[int, int]] = None):
         """Decode max_bars bars against ``ground_truth`` = (time_sig
         (B, bars), key (B, bars), upper (B, bars, Tu), upper_len (B, bars),
         lower (B, bars, Tl), lower_len (B, bars)).
@@ -745,7 +798,7 @@ class HierarchicalDecoder(nn.Module):
         ``group`` (data parallelism, this rank's rows): the stop steps
         behind the lengths and the length check are the global batch's,
         from one all-reduce, so every rank raises or none does; dropout
-        masks are this rank's rows of the global ones.
+        masks are this rank's rows of the global ones, at ``rows``.
         """
         cfg = self.cfg
         B, dev = enc.shape[0], enc.device
@@ -796,7 +849,7 @@ class HierarchicalDecoder(nn.Module):
         token = self.sos_token(B, dev)
         outs = []
         for j in range(bars):
-            token = _dropout(token, 0.1, train, generator, group)
+            token = _dropout(token, 0.1, train, generator, group, rows=rows)
             context, _ = A.attention_step(self.attn, enc_proj_bar, enc,
                                           hidden)
             bar_summary = G.gru_step(self.gru,
@@ -811,7 +864,8 @@ class HierarchicalDecoder(nn.Module):
                     tf_ratio, train, generator, emit_full=emit_full,
                     ga_frac=(j / bars, 1.0 / bars) if use_ga else None,
                     ga_sigma=ga_sigma, ga_dur_frac=ga_dur_frac,
-                    ga_content=ga_content, ga_map=ga_map, group=group)
+                    ga_content=ga_content, ga_map=ga_map, group=group,
+                    rows=rows)
             head_in = torch.cat([bar_summary, context], dim=-1)
             ts_logp = torch.log_softmax(self.time_sig_out(head_in), dim=-1)
             key_logp = torch.log_softmax(self.key_out(head_in), dim=-1)
@@ -868,7 +922,9 @@ class ScoreTranscription(nn.Module):
                 ga_map: str = "auto",
                 conv_dtype: Optional[torch.dtype] = None,
                 decode_dtype: Optional[torch.dtype] = None,
-                generator: Optional[torch.Generator] = None, group=None):
+                generator: Optional[torch.Generator] = None, group=None,
+                rows: Optional[Tuple[int, int]] = None, decode_chunk=None,
+                counted: Optional[torch.Tensor] = None):
         """spectrogram (B, 1, T, F) -> (time_sig_logp, key_logp,
         upper_logp, lower_logp, aux).
 
@@ -892,16 +948,27 @@ class ScoreTranscription(nn.Module):
         ``group`` (data parallelism): the batch is this rank's rows of the
         global batch, and the batch-coupled parts (BatchNorm statistics,
         dropout masks, stop steps) are the global batch's; see the module
-        docstring.
+        docstring. ``rows`` = (start, total): the batch is the rows [start,
+        start + B) of a global batch of ``total`` (default: this rank's
+        equal share); it places the rank's dropout masks. ``counted``
+        (B,) 0/1 (training): the rows the BatchNorm statistics count when
+        every row weight is 0; 0 marks a rank's stand-in row
+        (``parallel.step_rows``); default all.
+
+        ``decode_chunk`` (greedy inference only; None, an int or "auto"):
+        the note decoders stop in groups of that many rows
+        (HierarchicalDecoder.forward), the JAX package's decode_chunk.
         """
         if ground_truth is None:
             if train:
                 raise ValueError("the training forward needs ground_truth")
-            return self._greedy(spectrogram, decode_dtype, group)
+            return self._greedy(spectrogram, decode_dtype, group,
+                                decode_chunk)
         with record_function("forward/convstack"):
             if train:
                 feats = self.convstack.forward_train(
-                    spectrogram, sample_weight, generator, conv_dtype, group)
+                    spectrogram, sample_weight, generator, conv_dtype, group,
+                    rows, counted)
             else:
                 feats = self.convstack(_cast(spectrogram, decode_dtype))
         with record_function("forward/encoder"):
@@ -912,10 +979,12 @@ class ScoreTranscription(nn.Module):
                 enc, hidden, ground_truth, tf_ratio, train, generator,
                 emit_full=emit_full, ga_sigma=ga_sigma,
                 ga_dur_frac=ga_dur_frac, ga_content=ga_content,
-                ga_map=ga_map, decode_dtype=decode_dtype, group=group)
+                ga_map=ga_map, decode_dtype=decode_dtype, group=group,
+                rows=rows)
 
     @torch.no_grad()
     def _greedy(self, spectrogram: torch.Tensor,
-                decode_dtype: Optional[torch.dtype] = None, group=None):
+                decode_dtype: Optional[torch.dtype] = None, group=None,
+                decode_chunk=None):
         enc, hidden = self.encode(_cast(spectrogram, decode_dtype))
-        return self.decoder(enc, hidden, decode_dtype, group)
+        return self.decoder(enc, hidden, decode_dtype, group, decode_chunk)

@@ -70,7 +70,8 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def _batch_stats(x: torch.Tensor, axes: Sequence[int],
-                 weight: Optional[torch.Tensor], group=None):
+                 weight: Optional[torch.Tensor], group=None,
+                 counted: Optional[torch.Tensor] = None):
     """(mean, biased var, unbiased var, wx, n) of x over ``axes``, as
     ``batch_norm_train`` defines them. ``wx`` is the row weight broadcast
     against x (None without ``weight``); ``n`` the count of contributing
@@ -83,9 +84,13 @@ def _batch_stats(x: torch.Tensor, axes: Sequence[int],
     so a rank whose rows are all padding still takes the others' weighted
     statistics. The all-reduces are differentiable (their backward
     all-reduces the gradients), so autograd carries each rank's share of
-    the statistics' gradient to the other ranks' rows."""
+    the statistics' gradient to the other ranks' rows.
+
+    ``counted`` (B,) 0/1 marks the rows the fallback counts (default all):
+    a data-parallel rank's stand-in row (``parallel.step_rows``) has 0
+    there as well as a weight of 0, so it adds nothing in either case."""
     red = tuple(axes)
-    if weight is None and group is None:
+    if weight is None and group is None and counted is None:
         mean = x.mean(dim=red)
         var = x.var(dim=red, correction=0)
         n = x.numel() // mean.numel()
@@ -97,16 +102,22 @@ def _batch_stats(x: torch.Tensor, axes: Sequence[int],
         from torch.distributed.nn.functional import all_reduce
         return all_reduce(t, group=group)
 
-    ones = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
-    w = ones if weight is None else weight.to(x.dtype)
     row_shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    if counted is None:
+        ones = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+        plain = x.sum(dim=red)
+    else:
+        ones = counted.to(x.dtype)
+        plain = (x * ones.reshape(row_shape)).sum(dim=red)
+    w = ones if weight is None else weight.to(x.dtype)
     stat_shape = [x.shape[i] for i in range(x.dim()) if i not in red]
     per_row = math.prod(x.shape[a] for a in axes if a != 0)
     # One vector: the weighted and the plain sums per channel, sum(w) and
-    # the row count; the plain ones serve the all-zero weight fallback.
+    # the count of counted rows; the plain ones serve the all-zero weight
+    # fallback.
     sums = summed(torch.cat([
         (x * w.reshape(row_shape)).sum(dim=red).reshape(-1),
-        x.sum(dim=red).reshape(-1), w.sum()[None], ones.sum()[None]]))
+        plain.reshape(-1), w.sum()[None], ones.sum()[None]]))
     k = (sums.numel() - 2) // 2
     weighted = sums[-2] > 0
     # n counts the rows that contribute: sum(w) after the fallback.
@@ -136,7 +147,8 @@ def _channel_shape(x: torch.Tensor, axes: Sequence[int]):
 def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
                      axes: Sequence[int],
                      weight: Optional[torch.Tensor] = None,
-                     group=None) -> torch.Tensor:
+                     group=None,
+                     counted: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Training-mode BatchNorm of x over ``axes`` (axis 0 among them).
 
     Normalises by the biased batch variance and writes the running
@@ -147,9 +159,11 @@ def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
     unweighted statistics rather than 0/0. ``num_batches_tracked`` is not
     used: the momentum is fixed. With ``group`` (data parallelism) the
     statistics, the fallback and the running update are the global batch's
-    (``_batch_stats``), the same on every rank.
+    (``_batch_stats``), the same on every rank; ``counted`` marks the rows
+    that the fallback counts (0 for a rank's stand-in rows).
     """
-    mean, var, unbiased, _, _ = _batch_stats(x, axes, weight, group)
+    mean, var, unbiased, _, _ = _batch_stats(x, axes, weight, group,
+                                             counted)
     _update_running(bn, mean, unbiased)
     shape = _channel_shape(x, axes)
     inv = torch.rsqrt(var + BN_EPS)
@@ -176,10 +190,12 @@ class _BatchNormReLU(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, weight, axes, group=None):
+    def forward(ctx, x, gamma, beta, weight, axes, group=None,
+                counted=None):
         fdt = float32_or_wider(x.dtype)
         xf = x.to(fdt, copy=True)
-        mean, var, unbiased, wx, n = _batch_stats(xf, axes, weight, group)
+        mean, var, unbiased, wx, n = _batch_stats(xf, axes, weight, group,
+                                                  counted)
         shape = _channel_shape(x, axes)
         inv = torch.rsqrt(var + BN_EPS)
         scale = (inv * gamma).reshape(shape)
@@ -212,22 +228,25 @@ class _BatchNormReLU(torch.autograd.Function):
         share = (1.0 / n) if wx is None else wx / n
         dx = xhat.mul_(sum_gamma.reshape(shape)).add_(sum_beta.reshape(shape))
         dx = g.sub_(dx.mul_(share)).mul_((inv * gamma).reshape(shape))
-        return dx.to(x.dtype), dgamma, dbeta, None, None, None
+        return dx.to(x.dtype), dgamma, dbeta, None, None, None, None
 
 
 def batch_norm_relu_train(x: torch.Tensor,
                           bn: nn.modules.batchnorm._BatchNorm,
                           axes: Sequence[int],
                           weight: Optional[torch.Tensor] = None,
-                          group=None) -> torch.Tensor:
+                          group=None,
+                          counted: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """relu(batch_norm_train(x)) for a reduced-precision x (bfloat16): the
     statistics and the normalisation in at least float32, the result in
     x's dtype. Writes ``bn``'s running statistics as batch_norm_train does.
     Autograd keeps x, the result and per-channel statistics only
-    (``_BatchNormReLU``). ``group``: see batch_norm_train.
+    (``_BatchNormReLU``). ``group`` and ``counted``: see
+    batch_norm_train.
     """
     y, mean, unbiased = _BatchNormReLU.apply(x, bn.weight, bn.bias, weight,
-                                             tuple(axes), group)
+                                             tuple(axes), group, counted)
     _update_running(bn, mean, unbiased)
     return y
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import datetime
 import hashlib
 import os
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -175,24 +175,42 @@ def broadcast_path(path: Optional[str], group=None) -> Optional[str]:
     return path
 
 
+def step_rows(rank: int, world: int, batch: int,
+              accum: int = 1) -> Tuple[np.ndarray, int, bool]:
+    """(rows, start, owned): the global batch rows rank ``rank`` of
+    ``world`` computes in a data-parallel step, in order, their offset in
+    every microbatch, and whether the rank owns them.
+
+    Microbatch m of ``accum`` is the global rows [m M, (m+1) M), M = B/A,
+    as the JAX package's reshape cuts them, and the rank owns the rows
+    [floor(r M / N), floor((r + 1) M / N)) of each, the same count in
+    every microbatch: where N divides M the r-th of N equal slices, for
+    accum=1 the contiguous range that per-host sharded loading reads.
+    Where M < N some ranks own none; such a rank computes one stand-in row
+    of each microbatch, the global row at its offset (``owned`` False), so
+    that it enters every collective as the others do. The step gives
+    stand-ins a sample weight of 0 and leaves them out of the BatchNorm
+    statistics, so they add nothing. Raises unless A and N each divide B,
+    where the JAX package fails too (its microbatch reshape and its batch
+    sharding)."""
+    if batch % accum or batch % world:
+        raise ValueError(
+            f"data parallel: accum_steps and the world size must each "
+            f"divide the batch (B={batch}, A={accum}, N={world})")
+    micro = batch // accum
+    start, stop = rank * micro // world, (rank + 1) * micro // world
+    owned = start < stop
+    offsets = np.arange(start, stop if owned else start + 1)
+    rows = (np.arange(accum)[:, None] * micro + offsets).reshape(-1)
+    return rows.astype(np.int64), start, owned
+
+
 def local_rows(rank: int, world: int, batch: int,
                accum: int = 1) -> np.ndarray:
-    """The global batch rows rank ``rank`` of ``world`` owns, in order.
-
-    Microbatch m of ``accum`` is the global rows [m B/A, (m+1) B/A), as the
-    JAX package's reshape cuts them, and rank r computes the r-th of the
-    ``world`` equal slices of each microbatch. So the rank's rows are, for
-    each m in turn, m B/A + r B/(A N) + [0, B/(A N)); for accum=1 the
-    contiguous range [r B/N, (r+1) B/N) that per-host sharded loading
-    reads. Raises unless A N divides B.
-    """
-    if batch % (accum * world):
-        raise ValueError(
-            f"data parallel: accum_steps x world size must divide the batch "
-            f"(B={batch}, A={accum}, N={world})")
-    micro, share = batch // accum, batch // (accum * world)
-    return np.concatenate([m * micro + rank * share + np.arange(share)
-                           for m in range(accum)])
+    """The global batch rows rank ``rank`` of ``world`` owns, in order:
+    ``step_rows`` without stand-ins (empty where M < N leaves it none)."""
+    rows, _, owned = step_rows(rank, world, batch, accum)
+    return rows if owned else rows[:0]
 
 
 def assert_ranks_agree(host_batch: Dict[str, Any], group=None) -> None:

@@ -112,11 +112,14 @@ class Trainer:
                 raise ValueError(
                     f"train_dtype={train_dtype!r}: supported values are "
                     f"'bfloat16' (or 'float32' for the default)") from None
-        if exp.extras.get("eval_decode_chunk") is not None:
-            raise ValueError(
-                "eval_decode_chunk: the chunked decode is on ROADMAP's "
-                "'Not to port' list (decode_chunk, a TPU VMEM trick that "
-                "changes the decode of weak models)")
+        # Stop groups of the validation decode (extras
+        # `eval_decode_chunk: auto` or an int): off by default, since the
+        # decode's batch-coupled early exit then differs from the
+        # reference's one group per eval batch; ignored under data
+        # parallelism (train/step.py's eval_step).
+        self.eval_decode_chunk = exp.extras.get("eval_decode_chunk")
+        if self.eval_decode_chunk not in (None, "auto"):
+            self.eval_decode_chunk = int(self.eval_decode_chunk)
 
         self.model = ScoreTranscription(self.cfg)
         self.model.load_state_dict(
@@ -205,7 +208,8 @@ class Trainer:
             max_frame_num=exp.max_frame_num, ga_weight=self.ga_weight,
             ga_sigma=self.ga_sigma, ga_dur_frac=self.ga_dur_frac,
             ga_map=self.ga_map, conv_dtype=self.conv_dtype,
-            device=self.device, group=self.group)
+            device=self.device, group=self.group,
+            eval_decode_chunk=self.eval_decode_chunk)
         # Length bucketing: a batch whose longest target is far below the
         # caps decodes to a shorter width (rounded up to bucket_tokens);
         # exact, as the cut positions are all <pad>. 0 disables it.
@@ -253,7 +257,8 @@ class Trainer:
         gradients or the BatchNorm statistics).
 
         Data parallel: the targets and weights stay global, the feature
-        array is cut to this rank's rows (``parallel.local_rows``), or, from
+        array is cut to the rows this rank computes (``parallel.step_rows``:
+        its own, or stand-ins where it owns none of a microbatch), or, from
         per-host sharded loading, its rows are checked against them."""
         local_rows = batch.get("local_rows")
         if local_rows is not None and self.group is None:
@@ -287,8 +292,8 @@ class Trainer:
                 parallel.assert_ranks_agree(meta, self.group)
             self._batch_contract_ok = True
         r = dist.get_rank(self.group)
-        rows = parallel.local_rows(r, dist.get_world_size(self.group), b,
-                                   self.accum_steps if train else 1)
+        rows = parallel.step_rows(r, dist.get_world_size(self.group), b,
+                                  self.accum_steps if train else 1)[0]
         k = self.feature_key
         if local_rows is None:
             dev[k] = dev[k][rows]

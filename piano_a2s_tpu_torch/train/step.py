@@ -17,9 +17,11 @@ Data parallelism (``group``, a torch.distributed process group; the JAX
 package's step jitted over a device mesh): every rank takes the global
 batch's targets and sample weights, and either the global batch's feature
 array or its own rows of it (per-host sharded loading); it computes its
-rows (``parallel.local_rows``) with the global batch's BatchNorm
-statistics, dropout masks and stop steps, all-reduces the sum of the
-gradients as one flat buffer after the backward (after the last
+rows (``parallel.step_rows``: its own, or stand-in rows that weigh 0 and
+count in no statistic where it owns none of a microbatch) with the global
+batch's
+BatchNorm statistics, dropout masks and stop steps, all-reduces the sum of
+the gradients as one flat buffer after the backward (after the last
 microbatch) and the loss numerators, and divides by the totals of the
 global targets. So the norm, the clip, the skip on a non-finite value, the
 BatchNorm buffers and Adadelta agree on every rank, and equal one rank's
@@ -42,7 +44,7 @@ from torch.profiler import record_function
 
 from ..models.score_transcription import ScoreTranscription
 from ..ops.vqt import VQTConfig, filters, get_vqt
-from ..parallel import all_reduce_, local_rows
+from ..parallel import all_reduce_, step_rows
 from ..symbolic.vocab import LabelsMultiple
 from ..utils.audio import PCM16_SCALE
 from ..utils.device import resolve_device, use_full_float32
@@ -157,23 +159,29 @@ def _restore(model: torch.nn.Module, saved) -> None:
 
 def _forward(model: ScoreTranscription, batch: Batch, generator, tf_ratio,
              ga_weight, ga_sigma, ga_dur_frac, ga_map, conv_dtype,
-             group=None):
+             group=None, rows=None):
     return model(batch["spectrogram"], train=True,
                  ground_truth=_ground_truth(batch), tf_ratio=tf_ratio,
                  emit_full=False, sample_weight=batch.get("sample_weight"),
                  ga_sigma=(ga_sigma if ga_weight else 0.0),
                  ga_dur_frac=ga_dur_frac, ga_content=batch.get("ga_content"),
                  ga_map=ga_map, conv_dtype=conv_dtype, generator=generator,
-                 group=group)
+                 group=group, rows=rows, counted=batch.get("counted"))
 
 
-def rank_rows(batch: Batch, accum_steps: int, group) -> Batch:
-    """This rank's rows (``parallel.local_rows``) of every array of a
-    global batch; an array that already holds only the rank's rows (the
-    feature array of per-host sharded loading) passes as it is."""
+def rank_rows(batch: Batch, accum_steps: int, group):
+    """The rows this rank computes (``parallel.step_rows``) of every array
+    of a global batch, and where they lie in each microbatch: (rows,
+    (start, M)), the rows starting at offset ``start`` of every microbatch
+    of M. An array that already holds only the rank's rows (the feature
+    array of per-host sharded loading) passes as it is. Where the rank
+    owns no row of a microbatch (M < N), its stand-in rows get a sample
+    weight of 0 and a "counted" of 0, which keeps them out of the
+    BatchNorm statistics' unweighted fallback too."""
     size = batch["time_sig"].shape[0]
-    n = dist.get_world_size(group)
-    rows = local_rows(dist.get_rank(group), n, size, accum_steps)
+    rows, start, owned = step_rows(dist.get_rank(group),
+                                   dist.get_world_size(group), size,
+                                   accum_steps)
     out = {}
     for k, v in batch.items():
         if v.shape[0] == size:
@@ -184,7 +192,11 @@ def rank_rows(batch: Batch, accum_steps: int, group) -> Batch:
             raise ValueError(f"{k!r} has {v.shape[0]} rows: neither the "
                              f"global batch's {size} nor this rank's "
                              f"{len(rows)}")
-    return out
+    if not owned:
+        zeros = torch.zeros(len(rows), dtype=torch.float32,
+                            device=out["time_sig"].device)
+        out["sample_weight"], out["counted"] = zeros, zeros
+    return out, (start, size // accum_steps)
 
 
 def _clip_and_update(model: ScoreTranscription,
@@ -282,18 +294,21 @@ def train_step_accum(model: ScoreTranscription,
 
     ``group`` (data parallelism): ``batch`` is the global batch (its
     feature array may be this rank's rows already); microbatch m is the
-    global rows [m B/A, (m+1) B/A), of which this rank computes the r-th
-    of N slices (ValueError unless A N divides B). The totals come from the
-    global targets; the gradients and the numerators are summed over the
-    ranks."""
+    global rows [m B/A, (m+1) B/A), of which this rank computes its slice
+    (``parallel.step_rows``; ValueError unless A and N each divide B). A
+    rank that owns no row of a microbatch (B/A < N) computes a stand-in
+    row that weighs 0 and counts in no BatchNorm statistic, so that it
+    enters the same collectives as the others. The totals come from the global targets;
+    the gradients and the numerators are summed over the ranks."""
     ga_weight = ga_weight if ga_sigma > 0 else 0.0
     model.train()
     sw = batch.get("sample_weight")
     totals = component_totals(batch, model.cfg.pad, sample_weight=sw,
                               ga=bool(ga_weight))
     size = batch["time_sig"].shape[0]
+    rows = None
     if group is not None:
-        batch = rank_rows(batch, accum_steps, group)
+        batch, rows = rank_rows(batch, accum_steps, group)
         size = batch["time_sig"].shape[0]
     elif size % accum_steps:
         raise ValueError(f"accum_steps={accum_steps} does not divide the "
@@ -309,7 +324,8 @@ def train_step_accum(model: ScoreTranscription,
                        for k, v in batch.items()})
         with record_function("train_step/forward"):
             outs = _forward(model, mb, generator, tf_ratio, ga_weight,
-                            ga_sigma, ga_dur_frac, ga_map, conv_dtype, group)
+                            ga_sigma, ga_dur_frac, ga_map, conv_dtype, group,
+                            rows)
         with record_function("train_step/loss"):
             nums = fused_component_sums(
                 outs, mb, model.cfg.pad,
@@ -333,10 +349,14 @@ def train_step_accum(model: ScoreTranscription,
 
 @torch.no_grad()
 def eval_step(model: ScoreTranscription, batch: Batch,
-              prep: Callable[[Batch], Batch] = _promote_staged, group=None):
+              prep: Callable[[Batch], Batch] = _promote_staged, group=None,
+              decode_chunk=None):
     """Free-running (greedy) inference and the loss of its outputs against
     the targets, as the reference evaluates. Returns (StepOutput,
-    predictions dict).
+    predictions dict). ``decode_chunk``: the decode's stop groups
+    (ScoreTranscription.forward); None, the reference's one group, by
+    default, and ignored under ``group``, as the JAX package's eval step
+    ignores it under a mesh.
 
     ``group`` (data parallelism, a global batch): each rank decodes its
     rows, all ranks stop together (the JAX package's eval is one loop over
@@ -348,7 +368,7 @@ def eval_step(model: ScoreTranscription, batch: Batch,
     if group is not None:
         return _eval_step_dp(model, batch, prep, group)
     batch = prep(batch)
-    outs = model(batch["spectrogram"])
+    outs = model(batch["spectrogram"], decode_chunk=decode_chunk)
     loss, comps = transcription_loss(outs, batch, model.cfg.pad,
                                      sample_weight=batch.get("sample_weight"))
     return StepOutput(loss, comps), _predictions(outs)
@@ -366,14 +386,14 @@ def _predictions(outs) -> Dict[str, torch.Tensor]:
 
 def _eval_step_dp(model: ScoreTranscription, batch: Batch, prep, group):
     size = batch["time_sig"].shape[0]
-    local = prep(rank_rows(batch, 1, group))
+    local = prep(rank_rows(batch, 1, group)[0])
     outs = model(local["spectrogram"], group=group)
     nums = full_component_sums(outs, local, model.cfg.pad,
                                sample_weight=local.get("sample_weight"))
     totals = component_totals(batch, model.cfg.pad,
                               sample_weight=batch.get("sample_weight"))
-    rows = torch.as_tensor(local_rows(dist.get_rank(group),
-                                      dist.get_world_size(group), size),
+    rows = torch.as_tensor(step_rows(dist.get_rank(group),
+                                     dist.get_world_size(group), size)[0],
                            device=outs[0].device)
     preds = {}
     for k, v in _predictions(outs).items():
@@ -396,7 +416,7 @@ def make_train_steps(optimizer: torch.optim.Optimizer, accum_steps: int = 1,
                      ga_sigma: float = 0.15, ga_dur_frac=None,
                      ga_map: str = "auto",
                      conv_dtype: Optional[torch.dtype] = None, device="cuda",
-                     group=None):
+                     group=None, eval_decode_chunk=None):
     """(train_step(model, batch, generator, tf_ratio) -> StepOutput,
     eval_step(model, batch) -> (StepOutput, predictions)) for a model and
     ``optimizer`` on ``device``: the counterpart of the JAX package's
@@ -410,8 +430,10 @@ def make_train_steps(optimizer: torch.optim.Optimizer, accum_steps: int = 1,
     (train_step_accum). from_audio=True takes "audio" batches and runs the
     log-VQT frontend on the device inside both steps. conv_dtype=
     torch.bfloat16 trains the ConvStack in mixed precision; the eval step
-    stays float32, as the JAX package's does. ``device`` defaults to CUDA
-    and raises without it; on the card TF32 is turned off.
+    stays float32, as the JAX package's does. ``eval_decode_chunk``: the
+    eval step's stop groups (eval_step's decode_chunk; None by default and
+    under ``group``). ``device`` defaults to CUDA and raises without it; on
+    the card TF32 is turned off.
     """
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -433,6 +455,6 @@ def make_train_steps(optimizer: torch.optim.Optimizer, accum_steps: int = 1,
 
     def e_step(model, batch):
         return eval_step(model, batch_to_device(batch, dev), prep=prep,
-                         group=group)
+                         group=group, decode_chunk=eval_decode_chunk)
 
     return t_step, e_step

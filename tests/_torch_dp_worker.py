@@ -10,9 +10,10 @@ cases, all float64) and writes <workdir>/units_<rank>.pt: the BatchNorm
 functions' outputs and gradients on this rank's rows; a train_step and a
 train_step_accum (A=2) with dropout on, with and without the row
 weights, the latter also with the bf16 ConvStack (float32 weights), and
-one (A=2) with dropout patched out; the eval step on a weak model with the
-global stop and, for contrast, with this rank's own stop; the error of a
-batch of 6 at A=2; ``parallel.broadcast_path`` with rank 0 and rank 1
+one (A=2) with dropout patched out; the uneven batches (B=6 at A=2, B=4 at
+A=4, also with row 0 weighing 0), with dropout on and patched out; the eval step on a weak model with
+the global stop and, for contrast, with this rank's own stop; the error of
+a batch of 6 at A=4; ``parallel.broadcast_path`` with rank 0 and rank 1
 holding different paths.
 
 mode "trainer": reads <workdir>/trainer.json and fits the port's Trainer
@@ -121,10 +122,15 @@ def units():
               0.7)
     train("bf16_a2", inputs["weights"], inputs["batch"], 2, 0.7,
           torch.bfloat16)
+    for name, (batch, accum) in inputs["uneven"].items():
+        train(f"uneven_{name}", inputs["weights"], batch, accum, 0.7)
     dropout = tL.dropout
     tL.dropout = lambda x, rate, train, generator=None, rows=None: x
     try:
         train("no_dropout_a2", inputs["weights"], inputs["batch"], 2, 1.0)
+        for name, (batch, accum) in inputs["uneven"].items():
+            train(f"uneven_{name}_no_dropout", inputs["weights"], batch,
+                  accum, 1.0)
     finally:
         tL.dropout = dropout
 
@@ -144,7 +150,7 @@ def units():
 
     model = model_of(inputs["weights"])
     t_step, _ = tstep.make_train_steps(
-        tstep.make_optimizer(model.parameters()), accum_steps=2,
+        tstep.make_optimizer(model.parameters()), accum_steps=4,
         device="cpu", group=group)
     six = {k: np.asarray(v)[:6] for k, v in inputs["batch"].items()}
     try:

@@ -18,6 +18,7 @@ in float32, PyTorch rounds after each op): log-probs are held within 0.05,
 losses within 1e-2 relative.
 """
 
+import inspect
 import os
 
 import numpy as np
@@ -647,11 +648,10 @@ def test_train_commands_train_in_bf16_from_an_override(tmp_path, monkeypatch,
     seen = []
     forward_train = tst.ConvStack.forward_train
 
-    def spy(self, x, sample_weight=None, generator=None,
-            compute_dtype=None, group=None):
-        seen.append(compute_dtype)
-        return forward_train(self, x, sample_weight, generator,
-                             compute_dtype, group)
+    def spy(self, x, *args, **kwargs):
+        seen.append(inspect.signature(forward_train).bind(
+            self, x, *args, **kwargs).arguments.get("compute_dtype"))
+        return forward_train(self, x, *args, **kwargs)
     monkeypatch.setattr(tst.ConvStack, "forward_train", spy)
     cli = {"pretrain": tpretrain, "finetune": tfinetune}[command]
     corpus = {"pretrain": "synth", "finetune": "asap"}[command]

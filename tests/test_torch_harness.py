@@ -492,7 +492,7 @@ def test_pretrain_then_finetune_commands_from_audio(tmp_path):
 
 @pytest.mark.parametrize("extras,match", [
     ({"train_dtype": "int8"}, "train_dtype"),
-    ({"eval_decode_chunk": "auto"}, "Not to port"),
+    ({"eval_decode_chunk": "sixteen"}, "invalid literal"),
     ({"input_features": "mel"}, "input_features"),
     ({"upload_dtype": "int8"}, "upload_dtype"),
     ({"accum_steps": 3}, "must divide"),
@@ -502,10 +502,9 @@ def test_unported_and_bad_options_raise(tmp_path, extras, match):
     exp = _exp(tconfig, str(tmp_path), str(tmp_path), "o", **extras)
     with pytest.raises(ValueError, match=match):
         tharness.Trainer(exp, device="cpu")
-    if "eval_decode_chunk" not in extras:
-        jexp = _exp(jconfig, str(tmp_path), str(tmp_path), "j", **extras)
-        with pytest.raises(ValueError, match=match):
-            jharness.Trainer(jexp)
+    jexp = _exp(jconfig, str(tmp_path), str(tmp_path), "j", **extras)
+    with pytest.raises(ValueError, match=match):
+        jharness.Trainer(jexp)
 
 
 def test_data_parallel_and_missing_card_raise(tmp_path, monkeypatch, capsys):

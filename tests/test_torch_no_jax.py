@@ -56,6 +56,8 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert f"{PACKAGE}.ops.vqt_cuda" in mods and f"{PACKAGE}.serve" in mods
     assert f"{PACKAGE}.train.step" in mods
+    assert f"{PACKAGE}.entry" in mods
+    assert f"{PACKAGE}.cli.export_checkpoint" in mods
     _import_in_fresh_process(mods)
 
 

@@ -92,9 +92,12 @@ def _launch(workdir, mode, world=WORLD):
 # --- rows ----------------------------------------------------------------
 
 def test_local_rows_layout():
-    """Microbatch m is the global rows [m B/A, (m+1) B/A) and rank r owns
-    the r-th of N slices of each; A = 1 gives the contiguous range of the
-    JAX package's per-host loading."""
+    """Microbatch m is the global rows [m M, (m+1) M), M = B/A, and rank r
+    owns [floor(r M/N), floor((r+1) M/N)) of each; A = 1 gives the
+    contiguous range of the JAX package's per-host loading. Where N does
+    not divide M the slices differ by a row; where M < N some ranks own
+    none. Only the shapes the JAX package refuses raise: A or N not
+    dividing B."""
     assert parallel.local_rows(1, 2, 8).tolist() == [4, 5, 6, 7]
     assert parallel.local_rows(0, 2, 8, 2).tolist() == [0, 1, 4, 5]
     assert parallel.local_rows(1, 2, 8, 2).tolist() == [2, 3, 6, 7]
@@ -102,8 +105,62 @@ def test_local_rows_layout():
     joined = np.sort(np.concatenate([parallel.local_rows(r, 4, 16, 2)
                                      for r in range(4)]))
     assert joined.tolist() == list(range(16))
-    with pytest.raises(ValueError, match=r"B=6, A=2, N=2"):
-        parallel.local_rows(0, 2, 6, 2)
+    # N does not divide M = 3
+    assert parallel.local_rows(0, 2, 6, 2).tolist() == [0, 3]
+    assert parallel.local_rows(1, 2, 6, 2).tolist() == [1, 2, 4, 5]
+    # M = 1 < N = 2: rank 0 owns no row
+    assert parallel.local_rows(0, 2, 4, 4).tolist() == []
+    assert parallel.local_rows(1, 2, 4, 4).tolist() == [0, 1, 2, 3]
+    for world, batch, accum in ((4, 4, 2), (4, 8, 8), (3, 6, 2)):
+        joined = np.sort(np.concatenate([
+            parallel.local_rows(r, world, batch, accum)
+            for r in range(world)]))
+        assert joined.tolist() == list(range(batch)), (world, batch, accum)
+    with pytest.raises(ValueError, match=r"B=6, A=4, N=2"):
+        parallel.local_rows(0, 2, 6, 4)
+    with pytest.raises(ValueError, match=r"B=6, A=1, N=4"):
+        parallel.local_rows(0, 4, 6)
+
+
+def test_step_rows_stand_in_where_a_rank_owns_none():
+    """A rank computes its own rows, or, where it owns none of a
+    microbatch, one stand-in row of each: the global row at its offset.
+    step_rows gives (rows, offset in the microbatch, owned)."""
+    rows, start, owned = parallel.step_rows(1, 2, 6, 2)
+    assert (rows.tolist(), start, owned) == ([1, 2, 4, 5], 1, True)
+    rows, start, owned = parallel.step_rows(0, 2, 4, 4)
+    assert (rows.tolist(), start, owned) == ([0, 1, 2, 3], 0, False)
+    rows, start, owned = parallel.step_rows(2, 4, 4, 2)
+    assert (rows.tolist(), start, owned) == ([1, 3], 1, False)
+    with pytest.raises(ValueError, match=r"B=6, A=4, N=2"):
+        parallel.step_rows(0, 2, 6, 4)
+
+
+@pytest.mark.parametrize("fn", ["batch_norm_train", "batch_norm_relu_train"])
+@pytest.mark.parametrize("weight", [(0.0, 0.0, 0.0), (1.0, 0.0, 1.0)])
+def test_stand_in_rows_count_in_no_batch_norm_statistic(fn, weight):
+    """A stand-in row (weight 0, counted 0) leaves the BatchNorm output,
+    running statistics and gradients of the real rows as they are without
+    it, also where every weight is 0 and the statistics fall back to the
+    unweighted ones (which count every row that is not a stand-in)."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(3, 4, 5, 6))
+    cot = torch.from_numpy(rng.randn(3, 4, 5, 6))
+    w = torch.tensor(weight, dtype=torch.float64)
+    outs = []
+    for stand_in in (False, True):
+        bn = torch.nn.BatchNorm2d(4).double()
+        xi = (torch.cat([x, x[:1]]) if stand_in else x.clone()
+              ).requires_grad_(True)
+        wi = torch.cat([w, w.new_zeros(1)]) if stand_in else w
+        counted = (torch.tensor([1.0, 1.0, 1.0, 0.0], dtype=torch.float64)
+                   if stand_in else None)
+        y = getattr(tL, fn)(xi, bn, (0, 2, 3), wi, counted=counted)[:3]
+        (y * cot).sum().backward()
+        outs.append((y.detach(), xi.grad[:3], bn.running_mean,
+                     bn.running_var))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=ATOL_BN, rtol=0)
 
 
 def test_sharded_loader_contract(tmp_path):
@@ -121,10 +178,10 @@ def test_sharded_loader_contract(tmp_path):
                           accum_steps=accum, prefetch=0)
 
     (ref,) = list(loader(None))
-    for accum in (1, 2):
+    for accum in (1, 2, 8):
         got = [list(loader((r, 2), accum))[0] for r in range(2)]
         for r, b in enumerate(got):
-            rows = parallel.local_rows(r, 2, 8, accum)
+            rows = parallel.step_rows(r, 2, 8, accum)[0]
             np.testing.assert_array_equal(b["local_rows"], rows)
             np.testing.assert_array_equal(b["spectrogram"],
                                           ref["spectrogram"][rows])
@@ -133,7 +190,7 @@ def test_sharded_loader_contract(tmp_path):
                       "lower_lengths"):
                 np.testing.assert_array_equal(b[k], ref[k])
     with pytest.raises(ValueError, match="must divide batch_size=6"):
-        DataLoader(loader(None).dataset, 6, shard=(0, 2), accum_steps=2)
+        DataLoader(loader(None).dataset, 6, shard=(0, 2), accum_steps=4)
 
 
 # --- serving -------------------------------------------------------------
@@ -232,6 +289,27 @@ def _train_batch():
     return batch
 
 
+# Batches whose microbatches do not split evenly over the two ranks: B=6 at
+# A=2 (microbatches of 3, split 1 + 2; one row weighs 0) and B=4 at A=4
+# (microbatches of 1 row: rank 0 owns none and computes a stand-in row of
+# weight 0), with no row weights in the batch, and with row 0 weighing 0
+# (b4_a4_w0: microbatch 0's weights are all 0, so its BatchNorm takes the
+# unweighted fallback, which must not count the stand-in either).
+UNEVEN = {"b6_a2": (6, 2), "b4_a4": (4, 4), "b4_a4_w0": (4, 4)}
+
+
+def _uneven_batch(name):
+    b = UNEVEN[name][0]
+    batch = {k: np.array(v[:b]) for k, v in _train_batch().items()}
+    if name == "b4_a4":
+        del batch["sample_weight"]
+    elif name == "b4_a4_w0":
+        batch["sample_weight"][:] = [0.0, 1.0, 1.0, 1.0]
+    else:
+        batch["sample_weight"][-1] = 0.0
+    return batch
+
+
 def _weak_eval():
     """A weak float64 model whose items emit EOS at different steps, and an
     eval batch of 8 whose rows are scaled from 0 to 200 (unit-scale inputs
@@ -270,6 +348,8 @@ def units(tmp_path_factory):
                       for f in TCFG.__dataclass_fields__},
               "weights": state_dict_from_jax(params, state, TCFG),
               "batch": _train_batch(), "bn_cases": _bn_cases(),
+              "uneven": {k: (_uneven_batch(k), UNEVEN[k][1])
+                         for k in UNEVEN},
               "weak_weights": weak_sd, "eval_batch": eval_batch}
     torch.save(inputs, os.path.join(workdir, "inputs.pt"))
     _launch(workdir, "units")
@@ -402,11 +482,58 @@ def test_dp_step_equals_jax_mesh(units, x64, monkeypatch):
                                        atol=ATOL_JAX, rtol=0, err_msg=k)
 
 
+@pytest.mark.parametrize("name", sorted(UNEVEN))
+def test_dp_uneven_step_equals_one_rank(units, name):
+    """Batches the JAX package trains on whose microbatches do not split
+    evenly over the ranks: two ranks (one of them on stand-in rows of
+    weight 0 at B=4, A=4) equal one rank within 1e-10 in float64, dropout
+    on; the two ranks are identical."""
+    inputs, _, ranks = units
+    batch, accum = inputs["uneven"][name]
+    out, state = _one_rank_step(inputs["weights"], batch, accum, 0.7)
+    got = [r[f"uneven_{name}"] for r in ranks]
+    for g in got:
+        _assert_step_equal(g, out, state, ATOL_STEP)
+    for k, v in got[0]["state"].items():
+        assert torch.equal(v, got[1]["state"][k]), k
+
+
+@pytest.mark.parametrize("name", sorted(UNEVEN))
+def test_dp_uneven_step_equals_jax_mesh(units, x64, monkeypatch, name):
+    """The same batches against the JAX package's step jitted over a mesh
+    of two devices (dropout patched out in both packages, tf 1.0), within
+    1e-8 in float64."""
+    inputs, (params, state), ranks = units
+    batch, accum = inputs["uneven"][name]
+    monkeypatch.setattr(jL, "dropout", lambda key, x, rate, train: x)
+    mesh = jpar.make_mesh(WORLD)
+    opt = jstep.make_optimizer()
+    t_mesh, _ = jstep.make_jitted_steps(opt, CFG, mesh=mesh,
+                                        accum_steps=accum)
+    p, _, s, out = t_mesh(
+        jpar.put_replicated(params, mesh),
+        jpar.put_replicated(opt.init(params), mesh),
+        jpar.put_replicated(state, mesh),
+        jpar.put_batch({k: jnp.asarray(v) for k, v in batch.items()}, mesh),
+        jax.random.PRNGKey(0), 1.0)
+    ref = state_dict_from_jax(jax.tree.map(np.asarray, p),
+                              jax.tree.map(np.asarray, s), TCFG)
+    for g in (r[f"uneven_{name}_no_dropout"] for r in ranks):
+        _close(g["loss"], float(out.loss), ATOL_JAX)
+        for k, v in out.components.items():
+            _close(g["components"][k], float(v), ATOL_JAX)
+        for k, v in ref.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            np.testing.assert_allclose(g["state"][k].numpy(), v.numpy(),
+                                       atol=ATOL_JAX, rtol=0, err_msg=k)
+
+
 def test_dp_step_rejects_indivisible_batch(units):
-    """B = 6 at A = 2 on two ranks: every rank raises before any
-    collective, naming B, A and N."""
+    """B = 6 at A = 4 on two ranks, a batch the JAX package refuses too:
+    every rank raises before any collective, naming B, A and N."""
     for r in units[2]:
-        assert "B=6, A=2, N=2" in r["b6_error"]
+        assert "B=6, A=4, N=2" in r["b6_error"]
 
 
 def test_checkpoint_choice_is_rank0s(units):
