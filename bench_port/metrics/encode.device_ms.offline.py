@@ -1,0 +1,13 @@
+"""Device milliseconds per batch of the ConvStack and the encoder
+(forward/convstack + forward/encoder) in the profiled batches."""
+
+from bench_port.harness import readers as R
+
+
+def read(run):
+    units = R.profiled(run)
+    if not units:
+        return None
+    t = run.trace.span_device_seconds(["forward/convstack",
+                                       "forward/encoder"])
+    return 1e3 * t / len(units) if t else None
