@@ -27,7 +27,6 @@ its batch's; batches of 16 or fewer are one group.
 from __future__ import annotations
 
 import os
-import time
 from collections import deque
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
@@ -43,6 +42,7 @@ from .train.checkpoint import Checkpointer, is_checkpoint
 from .train.metrics import unpad
 from .utils.audio import PCM16_SCALE, stack_audio_batch, trim_pad_audio
 from .utils.device import resolve_device, use_full_float32
+from .utils.profiling import span
 
 
 class Transcriber:
@@ -207,13 +207,14 @@ class Transcriber:
         """List of mono clips -> list of per-clip target structures.
 
         ``timings`` (optional dict) accumulates seconds under
-        "host_prep_s", "device_s" and "postprocess_s" (the server's /stats).
+        "host_prep_s", "device_s" and "postprocess_s" (the server's /stats):
+        the walls of the spans ``transcribe/prepare``, ``/device`` and
+        ``/postprocess``. ``device_s`` is the host's wall around the launch
+        and the copy back, not device time.
         """
-        t0 = time.monotonic()
-        audio, n = self.prepare_batch(audio_batch)
-        if timings is not None:
-            timings["host_prep_s"] = (timings.get("host_prep_s", 0.0)
-                                      + time.monotonic() - t0)
+        with span("transcribe/prepare", into=timings, key="host_prep_s",
+                  ranged=False):
+            audio, n = self.prepare_batch(audio_batch)
         return self.transcribe_prepared(audio, n, timings=timings)
 
     def prepare_batch(self, audio_batch: Sequence[np.ndarray]):
@@ -235,16 +236,14 @@ class Transcriber:
     def transcribe_prepared(self, audio, n: int,
                             timings: Optional[dict] = None
                             ) -> List[List[list]]:
-        """Device half of transcribe_batch, then token decoding."""
-        t1 = time.monotonic()
-        arrays = self._to_host(self._launch(audio))
-        t2 = time.monotonic()
-        out = self._postprocess(arrays, n)
-        if timings is not None:
-            t3 = time.monotonic()
-            for k, v in (("device_s", t2 - t1), ("postprocess_s", t3 - t2)):
-                timings[k] = timings.get(k, 0.0) + v
-        return out
+        """Device half of transcribe_batch, then token decoding; ``timings``
+        as there ("device_s" and "postprocess_s")."""
+        with span("transcribe/device", into=timings, key="device_s",
+                  ranged=False):
+            arrays = self._to_host(self._launch(audio))
+        with span("transcribe/postprocess", into=timings,
+                  key="postprocess_s", ranged=False):
+            return self._postprocess(arrays, n)
 
     def _postprocess(self, arrays, n: int) -> List[List[list]]:
         """Host outputs -> the first n clips' per-bar target structures."""

@@ -34,18 +34,19 @@ each stops on its own.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention as A
 from ..ops import gru as G
 from ..ops import layers as L
+from ..utils import profiling as P
 
 CONV_CHANNELS = (20, 20, 40, 40)
 
@@ -326,6 +327,12 @@ def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
     group stops, and the host reads a (2, groups) flag a step.
 
     Returns per staff (logp (B, T_s, V), tokens (B, T_s), lengths (B,)).
+
+    While tracing (``utils.profiling``), the call counts on the innermost
+    open span (``decode/notes``): ``note_steps`` (steps run),
+    ``stop_read_ns`` (the host's wall in the stop reads), ``rows_computed``
+    (2 x B a step: both staves' rows are always stepped) and
+    ``rows_active`` (the rows of the (staff, group) pairs still decoding).
     """
     B, dev = enc.shape[0], enc.device
     caps = tuple(cfg.max_length)
@@ -340,17 +347,26 @@ def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
     tok2 = _tok_proj(p, torch.full((2, B), cfg.sos, dtype=torch.long,
                                    device=dev))
     masks = {}
+    on = P.active()
+    steps = read_ns = active_groups = 0
     for t in range(T):
+        if on:
+            t0 = time.perf_counter_ns()
         if group is None:
             group_done = done.reshape(2, n_groups, -1).all(dim=2).tolist()
         else:
             left = (~done).sum(dim=1)
             dist.all_reduce(left, group=group)
             group_done = (left == 0)[:, None].tolist()
+        if on:
+            read_ns += time.perf_counter_ns() - t0
         act = tuple(tuple(t < caps[s] and not d for d in group_done[s])
                     for s in range(2))
         if not any(map(any, act)):
             break
+        if on:
+            steps += 1
+            active_groups += sum(map(sum, act))
         if act not in masks:
             masks[act] = torch.tensor(act, device=dev).repeat_interleave(
                 B // n_groups, dim=1)                            # (2, B)
@@ -363,6 +379,11 @@ def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
         lengths = torch.where(is_eos, t + 1, lengths)
         done = done | is_eos
         tok2 = torch.where(m[:, :, None], _tok_proj(p, pred2), tok2)
+    if on:
+        P.count("note_steps", steps)
+        P.count("stop_read_ns", read_ns)
+        P.count("rows_computed", 2 * B * steps)
+        P.count("rows_active", B // n_groups * active_groups)
     out = []
     for s, cap in enumerate(caps):
         out.append((logps[:cap, s].transpose(0, 1),
@@ -508,7 +529,15 @@ def _teacher_step(emit_full: bool, enc: torch.Tensor,
     gradients to all of them. Returns (h2, next token embeddings, emitted
     (2, B[, V]), prediction (2, B), guided-attention penalty (2, B) float32
     or None).
+
+    With gradients on it runs as the reentrant checkpoint's recompute, in
+    the backward, on the thread autograd runs it on; while tracing it
+    counts ``train.recompute_ns`` (its host wall) there
+    (``utils.profiling``).
     """
+    recompute = P.active() and torch.is_grad_enabled()
+    if recompute:
+        t0 = time.perf_counter_ns()
     emb, w_q, v, w_ih, b_ih, w_hh, b_hh, w_out, b_out = weights
     # The dropout scale is float32 (or wider): a bf16 token embedding gets
     # x / 0.9 rounded once, as the JAX package computes it.
@@ -530,7 +559,10 @@ def _teacher_step(emit_full: bool, enc: torch.Tensor,
     # The attention mass outside the guide, in float32 as the JAX package
     # has it (the guide is zero at pad steps).
     pen = None if guide_t is None else (w2.float() * guide_t).sum(dim=-1)
-    return h2, _embed2(emb, nxt), emitted, pred2, pen
+    nxt = _embed2(emb, nxt)
+    if recompute:
+        P.count("train.recompute_ns", time.perf_counter_ns() - t0)
+    return h2, nxt, emitted, pred2, pen
 
 
 def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
@@ -712,6 +744,9 @@ class HierarchicalDecoder(nn.Module):
         "auto"; ``pick_decode_chunk`` against B): the note decoders stop
         in groups of that many rows; ignored under ``group``, as the JAX
         package ignores it under a mesh.
+
+        Each bar's note decoders run in a span ``decode/notes``
+        (``utils.profiling``; a record, no kineto range).
         """
         cfg = self.cfg
         B, dev = enc.shape[0], enc.device
@@ -732,10 +767,11 @@ class HierarchicalDecoder(nn.Module):
                                      torch.cat([token, context], dim=-1),
                                      hidden)
             hidden = bar_summary
-            (up_logp, up_tok, up_len), (low_logp, low_tok, low_len) = \
-                note_decoder_dual_infer(dual, cfg, enc_dec, enc_proj2,
-                                        bar_summary.to(enc_dec.dtype), group,
-                                        chunk)
+            with P.span("decode/notes", ranged=False):
+                (up_logp, up_tok, up_len), (low_logp, low_tok, low_len) = \
+                    note_decoder_dual_infer(dual, cfg, enc_dec, enc_proj2,
+                                            bar_summary.to(enc_dec.dtype),
+                                            group, chunk)
             head_in = torch.cat([bar_summary, context], dim=-1)
             ts_logp = torch.log_softmax(self.time_sig_out(head_in), dim=-1)
             key_logp = torch.log_softmax(self.key_out(head_in), dim=-1)
@@ -909,9 +945,13 @@ class ScoreTranscription(nn.Module):
         self.decoder = HierarchicalDecoder(cfg)
 
     def encode(self, spectrogram: torch.Tensor):
-        """(B, 1, T, F) -> (enc (B, T, 2H), bridge hidden (B, 2H))."""
-        feats = self.convstack(spectrogram)
-        return self.encoder(feats.to(L.float32_or_wider(feats.dtype)))
+        """(B, 1, T, F) -> (enc (B, T, 2H), bridge hidden (B, 2H)), in the
+        spans ``forward/convstack`` and ``forward/encoder`` (records, no
+        kineto ranges)."""
+        with P.span("forward/convstack", ranged=False):
+            feats = self.convstack(spectrogram)
+        with P.span("forward/encoder", ranged=False):
+            return self.encoder(feats.to(L.float32_or_wider(feats.dtype)))
 
     def forward(self, spectrogram: torch.Tensor, train: bool = False,
                 ground_truth=None, tf_ratio: float = 0.0,
@@ -964,17 +1004,17 @@ class ScoreTranscription(nn.Module):
                 raise ValueError("the training forward needs ground_truth")
             return self._greedy(spectrogram, decode_dtype, group,
                                 decode_chunk)
-        with record_function("forward/convstack"):
+        with P.span("forward/convstack"):
             if train:
                 feats = self.convstack.forward_train(
                     spectrogram, sample_weight, generator, conv_dtype, group,
                     rows, counted)
             else:
                 feats = self.convstack(_cast(spectrogram, decode_dtype))
-        with record_function("forward/encoder"):
+        with P.span("forward/encoder"):
             enc, hidden = self.encoder(
                 feats.to(L.float32_or_wider(feats.dtype)))
-        with record_function("forward/decoder"):
+        with P.span("forward/decoder"):
             return self.decoder.forward_teacher_forced(
                 enc, hidden, ground_truth, tf_ratio, train, generator,
                 emit_full=emit_full, ga_sigma=ga_sigma,
@@ -987,4 +1027,6 @@ class ScoreTranscription(nn.Module):
                 decode_dtype: Optional[torch.dtype] = None, group=None,
                 decode_chunk=None):
         enc, hidden = self.encode(_cast(spectrogram, decode_dtype))
-        return self.decoder(enc, hidden, decode_dtype, group, decode_chunk)
+        with P.span("forward/decoder", ranged=False):
+            return self.decoder(enc, hidden, decode_dtype, group,
+                                decode_chunk)

@@ -40,6 +40,7 @@ import torch
 
 from .symbolic.export import export_target, tokens_to_kern
 from .utils.audio import read_wav, resample
+from .utils.profiling import span
 
 # What a malformed request body raises while it is decoded: a 400.
 _BAD_BODY = (ValueError, EOFError, OSError, wave.Error, struct.error)
@@ -168,9 +169,10 @@ class TranscriptionService:
             wait = t0 - min(it["t_submit"] for it in batch)
             timings = {}
             try:
-                specs, n = self.transcriber.prepare_batch(
-                    [it["audio"] for it in batch])
-                timings["host_prep_s"] = time.monotonic() - t0
+                with span("transcribe/prepare", into=timings,
+                          key="host_prep_s", ranged=False):
+                    specs, n = self.transcriber.prepare_batch(
+                        [it["audio"] for it in batch])
                 results = self.transcriber.transcribe_prepared(
                     specs, n, timings=timings)
                 for it, res in zip(batch, results):

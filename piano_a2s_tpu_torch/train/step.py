@@ -5,10 +5,10 @@ backward and an Adadelta update, with the reference's safeguards: the
 gradients' global norm is clipped at 5.0, and the update is skipped when
 the loss or that norm is not finite. The model, its BatchNorm buffers and
 the optimizer are updated in place; a skipped step leaves all three as
-they were. The stages of a step are marked with ``record_function``
+they were. The stages of a step are spans of ``utils.profiling``
 (``train_step/frontend``, ``/forward``, ``/loss``, ``/backward``,
-``/update``) for ``torch.profiler``; scripts/torch_train_breakdown.py
-reads them.
+``/update``), ``record_function`` ranges while ``torch.profiler`` records;
+the benchmark's ``train.forward_ms`` and ``train.backward_ms`` read them.
 
 Training on the card turns TF32 off (``make_train_steps`` calls
 ``use_full_float32``): the JAX package is the float32 reference.
@@ -40,7 +40,6 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..models.score_transcription import ScoreTranscription
 from ..ops.vqt import VQTConfig, filters, get_vqt
@@ -48,6 +47,7 @@ from ..parallel import all_reduce_, step_rows
 from ..symbolic.vocab import LabelsMultiple
 from ..utils.audio import PCM16_SCALE
 from ..utils.device import resolve_device, use_full_float32
+from ..utils.profiling import span
 from .losses import (component_totals, full_component_sums,
                      fused_component_sums, transcription_loss,
                      transcription_loss_fused)
@@ -252,20 +252,20 @@ def train_step(model: ScoreTranscription, optimizer: torch.optim.Optimizer,
     # A zero-width guide is no guide.
     ga_weight = ga_weight if ga_sigma > 0 else 0.0
     model.train()  # cuDNN's RNN backward needs the training mode
-    with record_function("train_step/frontend"):
+    with span("train_step/frontend"):
         batch = prep(batch)
     before = _snapshot(model)
     optimizer.zero_grad(set_to_none=True)
-    with record_function("train_step/forward"):
+    with span("train_step/forward"):
         outs = _forward(model, batch, generator, tf_ratio, ga_weight,
                         ga_sigma, ga_dur_frac, ga_map, conv_dtype)
-    with record_function("train_step/loss"):
+    with span("train_step/loss"):
         loss, comps = transcription_loss_fused(
             outs, batch, model.cfg.pad,
             sample_weight=batch.get("sample_weight"), ga_weight=ga_weight)
-    with record_function("train_step/backward"):
+    with span("train_step/backward"):
         loss.backward()
-    with record_function("train_step/update"):
+    with span("train_step/update"):
         gnorm = _clip_and_update(model, optimizer, loss, before)
     return StepOutput(loss.detach(), {k: v.detach() for k, v in comps.items()},
                       gnorm)
@@ -319,19 +319,19 @@ def train_step_accum(model: ScoreTranscription,
     nums_acc: Dict[str, torch.Tensor] = {}
     after_first = None
     for m in range(accum_steps):
-        with record_function("train_step/frontend"):
+        with span("train_step/frontend"):
             mb = prep({k: v[m * micro:(m + 1) * micro]
                        for k, v in batch.items()})
-        with record_function("train_step/forward"):
+        with span("train_step/forward"):
             outs = _forward(model, mb, generator, tf_ratio, ga_weight,
                             ga_sigma, ga_dur_frac, ga_map, conv_dtype, group,
                             rows)
-        with record_function("train_step/loss"):
+        with span("train_step/loss"):
             nums = fused_component_sums(
                 outs, mb, model.cfg.pad,
                 sample_weight=mb.get("sample_weight"), ga_weight=ga_weight)
             part = sum(nums[k] / totals[k] for k in sorted(nums))
-        with record_function("train_step/backward"):
+        with span("train_step/backward"):
             part.backward()
         for k, v in nums.items():
             nums_acc[k] = nums_acc.get(k, 0.0) + v.detach()
@@ -342,7 +342,7 @@ def train_step_accum(model: ScoreTranscription,
         all_reduce_(list(nums_acc.values()), group)
     comps = {k: nums_acc[k] / totals[k] for k in nums_acc}
     loss = sum(comps.values())
-    with record_function("train_step/update"):
+    with span("train_step/update"):
         gnorm = _clip_and_update(model, optimizer, loss, before, group)
     return StepOutput(loss, comps, gnorm)
 

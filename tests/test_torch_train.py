@@ -681,8 +681,9 @@ def test_synthetic_audio_batch_is_well_formed_and_trains():
 
 @pytest.mark.parametrize("accum_steps", [1, 2])
 def test_train_step_marks_its_stages(accum_steps):
-    """Every stage that scripts/torch_train_breakdown.py reads is marked
-    with record_function in the step the training entry point returns."""
+    """Every stage of the step the training entry point returns is a span
+    (a record_function range under the profiler) that the benchmark's
+    train.forward_ms and train.backward_ms and the breakdown read."""
     from torch.profiler import ProfilerActivity, profile
     model = _port_model(*_weights())
     t_step, _ = tstep.make_train_steps(
