@@ -304,11 +304,37 @@ def _fast_step(p: DualDecodeParams, enc: torch.Tensor,
     return h2_new, logp2, logp2.argmax(dim=-1)
 
 
+def _masked_step(p: DualDecodeParams, cfg: ModelConfig, enc: torch.Tensor,
+                 enc_proj2: torch.Tensor, m: torch.Tensor, t1,
+                 h2: torch.Tensor, tok2: torch.Tensor,
+                 lengths: torch.Tensor, done: torch.Tensor):
+    """One greedy step of both staves (``_fast_step``, looked up on the
+    module at each call) kept only in the rows of the (staff, group) pairs
+    still decoding, ``m`` (2, B) bool: elsewhere the state stays and the
+    step's log-probs and tokens are zero. ``t1`` is the step's index plus
+    one (an int, or a 0-dim tensor on the device), the length of a row
+    that emits EOS here. Returns (h2, logp (2, B, V), pred (2, B),
+    lengths, done, tok2)."""
+    h2_new, logp2, pred2 = _fast_step(p, enc, enc_proj2, h2, tok2)
+    m3 = m[:, :, None]
+    h2 = torch.where(m3, h2_new, h2)
+    logp = torch.where(m3, logp2, 0.0)
+    pred = torch.where(m, pred2, 0)
+    is_eos = (pred2 == cfg.eos) & m
+    lengths = torch.where(is_eos, t1, lengths)
+    done = done | is_eos
+    tok2 = torch.where(m3, _tok_proj(p, pred2), tok2)
+    return h2, logp, pred, lengths, done, tok2
+
+
 def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
                             enc: torch.Tensor, enc_proj2: torch.Tensor,
                             h0: torch.Tensor, group=None,
                             chunk: Optional[int] = None):
-    """Greedy decode of both staves with the reference's early exit.
+    """Greedy decode of both staves with the reference's early exit, one
+    step at a time (the eager loop; on a card, without ``group`` and
+    without gradients, ``HierarchicalDecoder.forward`` runs the same steps
+    as replayed CUDA graphs instead: ``_NoteGraph``).
 
     Staff s steps while t < its cap and not every batch item has emitted
     EOS; its buffers stay zero after it stops. An item's length is its
@@ -370,25 +396,223 @@ def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
         if act not in masks:
             masks[act] = torch.tensor(act, device=dev).repeat_interleave(
                 B // n_groups, dim=1)                            # (2, B)
-        m = masks[act]
-        h2_new, logp2, pred2 = _fast_step(p, enc, enc_proj2, h2, tok2)
-        h2 = torch.where(m[:, :, None], h2_new, h2)
-        logps[t] = torch.where(m[:, :, None], logp2, 0.0)
-        preds[t] = torch.where(m, pred2, 0)
-        is_eos = (pred2 == cfg.eos) & m
-        lengths = torch.where(is_eos, t + 1, lengths)
-        done = done | is_eos
-        tok2 = torch.where(m[:, :, None], _tok_proj(p, pred2), tok2)
+        h2, logps[t], preds[t], lengths, done, tok2 = _masked_step(
+            p, cfg, enc, enc_proj2, masks[act], t + 1, h2, tok2, lengths,
+            done)
     if on:
         P.count("note_steps", steps)
         P.count("stop_read_ns", read_ns)
         P.count("rows_computed", 2 * B * steps)
         P.count("rows_active", B // n_groups * active_groups)
-    out = []
-    for s, cap in enumerate(caps):
-        out.append((logps[:cap, s].transpose(0, 1),
-                    preds[:cap, s].transpose(0, 1), lengths[s]))
-    return tuple(out)
+    return _per_staff(logps, preds, lengths, caps)
+
+
+def _per_staff(logps, preds, lengths, caps) -> tuple:
+    """(T, 2, B, ...) buffers -> per staff (logp (B, T_s, V), tokens
+    (B, T_s), lengths (B,))."""
+    return tuple((logps[:cap, s].transpose(0, 1),
+                  preds[:cap, s].transpose(0, 1), lengths[s])
+                 for s, cap in enumerate(caps))
+
+
+# Steps one replay of a greedy note decode graph runs (K). The host reads
+# the stop flags once a replay: a longer replay spreads that read (a wait
+# for the card) and the launch over more steps, a shorter one computes
+# fewer steps past the stop (at most K - 1 a bar, whose rows the mask
+# discards). Chosen on the card (PERF.md).
+GRAPH_STEPS = 16
+
+
+class _NoteGraph:
+    """The greedy note decode of one shape (rows, stop groups, dtype,
+    device, enc's length) as a CUDA graph of ``k`` steps, replayed until
+    every (staff, group) pair has stopped.
+
+    The graph reads and writes only the static buffers made here: each
+    forward copies its enc, projections and weights in (``bind``), each
+    bar its bar summary (``decode``), and the host copies each replay's
+    log-probs and tokens out into the call's own tensors. A replay runs
+    ``k`` steps of ``_masked_step``, the eager loop's, with the mask made
+    on the card from the done flags and a step counter (t < each staff's
+    cap); a step after every pair has stopped changes nothing, so the
+    outputs are the eager loop's. The host reads the (2, groups) stop
+    flags with one ``.tolist()`` a replay.
+
+    Without ``capture()`` (the CPU tests) ``decode`` runs the same blocks
+    eagerly. One decode at a time per instance: the buffers are shared.
+
+    While tracing, ``decode`` counts on the innermost open span what the
+    eager loop counts (``note_steps``, the steps run past the stop too;
+    ``stop_read_ns``; ``rows_computed``; ``rows_active``, from the stop
+    steps the tokens give) and ``graph_steps``, the steps run in replays.
+    """
+
+    def __init__(self, p: DualDecodeParams, cfg: ModelConfig,
+                 enc: torch.Tensor, enc_proj2: torch.Tensor,
+                 chunk: Optional[int], k: int):
+        B, dev = enc.shape[0], enc.device
+        self.cfg, self.k, self.graph = cfg, k, None
+        self.groups = B // chunk if chunk else 1
+        # Plain tensors even under inference_mode, so that a later call
+        # under no_grad can copy into them.
+        with torch.inference_mode(False):
+            self.p = DualDecodeParams(**{
+                f.name: torch.empty_like(getattr(p, f.name))
+                for f in dataclasses.fields(DualDecodeParams)})
+            self.enc = torch.empty_like(enc)
+            self.enc_proj2 = torch.empty_like(enc_proj2)
+            self.caps = torch.tensor(cfg.max_length, device=dev)[:, None]
+            self.sos = torch.full((2, B), cfg.sos, dtype=torch.long,
+                                  device=dev)
+            self.tok0 = torch.empty((2, B, p.emb_proj.shape[-1]),
+                                    dtype=p.emb_proj.dtype, device=dev)
+            self.tok2 = torch.empty_like(self.tok0)
+            self.h2 = torch.empty((2, B, p.w_hq.shape[1]),
+                                  dtype=enc.dtype, device=dev)
+            self.lengths = torch.empty((2, B), dtype=torch.long, device=dev)
+            self.done = torch.empty((2, B), dtype=torch.bool, device=dev)
+            self.t = torch.empty((), dtype=torch.long, device=dev)
+            self.logp = torch.empty((k, 2, B, cfg.vocab_size),
+                                    dtype=L.float32_or_wider(enc.dtype),
+                                    device=dev)
+            self.pred = torch.empty((k, 2, B), dtype=torch.long, device=dev)
+            self.stopped = torch.empty((2, self.groups), dtype=torch.bool,
+                                       device=dev)
+
+    def bind(self, p: DualDecodeParams, enc: torch.Tensor,
+             enc_proj2: torch.Tensor) -> "_NoteGraph":
+        """Copy one forward's operands into the static buffers."""
+        for f in dataclasses.fields(DualDecodeParams):
+            getattr(self.p, f.name).copy_(getattr(p, f.name))
+        self.enc.copy_(enc)
+        self.enc_proj2.copy_(enc_proj2)
+        self.tok0.copy_(_tok_proj(self.p, self.sos))
+        return self
+
+    def _reset(self, h0: torch.Tensor) -> None:
+        self.h2.copy_(h0.expand_as(self.h2))
+        self.tok2.copy_(self.tok0)
+        self.lengths.copy_(self.caps.expand_as(self.lengths))
+        self.done.zero_()
+        self.t.zero_()
+
+    def _block(self) -> None:
+        """``k`` masked steps from the static state (the graph's body)."""
+        p, cfg, g = self.p, self.cfg, self.groups
+        B = self.done.shape[1]
+        h2, tok2, lengths, done, t = (self.h2, self.tok2, self.lengths,
+                                      self.done, self.t)
+        for i in range(self.k):
+            live = (~done).reshape(2, g, -1).any(dim=2, keepdim=True)
+            m = (live & (t < self.caps)[:, :, None]).expand(
+                2, g, B // g).reshape(2, B)
+            t = t + 1
+            h2, self.logp[i], self.pred[i], lengths, done, tok2 = \
+                _masked_step(p, cfg, self.enc, self.enc_proj2, m, t, h2,
+                             tok2, lengths, done)
+        self.h2.copy_(h2)
+        self.tok2.copy_(tok2)
+        self.lengths.copy_(lengths)
+        self.done.copy_(done)
+        self.t.copy_(t)
+        torch.all(done.reshape(2, g, -1), dim=2, out=self.stopped)
+
+    def capture(self) -> "_NoteGraph":
+        """Warm the block up eagerly (twice) on a side stream, then capture it
+        (``thread_local``: other threads may use the card meanwhile, as the
+        server's and the mesh's do)."""
+        dev = self.enc.device
+        self._reset(torch.zeros_like(self.h2[0]))
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for _ in range(2):
+                self._block()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.graph(
+                graph, stream=stream, capture_error_mode="thread_local"):
+            self._block()
+        self.graph = graph
+        return self
+
+    def decode(self, h0: torch.Tensor):
+        """One bar from the bar summary ``h0`` (B, 2H); returns what
+        ``note_decoder_dual_infer`` returns."""
+        cfg, k = self.cfg, self.k
+        caps = tuple(cfg.max_length)
+        T = max(caps)
+        B, dev = h0.shape[0], h0.device
+        run = self._block if self.graph is None else self.graph.replay
+        self._reset(h0)
+        logps = torch.zeros((T,) + self.logp.shape[1:], dtype=self.logp.dtype,
+                            device=dev)
+        preds = torch.zeros((T, 2, B), dtype=torch.long, device=dev)
+        on = P.active()
+        t = read_ns = 0
+        while t < T:
+            run()
+            n = min(k, T - t)
+            logps[t:t + n] = self.logp[:n]
+            preds[t:t + n] = self.pred[:n]
+            t += k
+            if t >= T:
+                break
+            if on:
+                t0 = time.perf_counter_ns()
+            stopped = self.stopped.tolist()
+            if on:
+                read_ns += time.perf_counter_ns() - t0
+            if not any(t < caps[s] and not d
+                       for s in range(2) for d in stopped[s]):
+                break
+        lengths = self.lengths.clone()
+        if on:
+            g = self.groups
+            active = sum(int(_stop_step(
+                (preds[:cap, s] == cfg.eos).T.reshape(g, B // g, cap)).sum())
+                for s, cap in enumerate(caps))
+            P.count("note_steps", t)
+            if self.graph is not None:
+                P.count("graph_steps", t)
+            P.count("stop_read_ns", read_ns)
+            P.count("rows_computed", 2 * B * t)
+            P.count("rows_active", B // g * active)
+        return _per_staff(logps, preds, lengths, caps)
+
+
+def runs_as_graph(enc: torch.Tensor, group=None) -> bool:
+    """Whether a greedy forward of ``enc`` runs its note decoders as
+    replayed CUDA graphs: on a card, without a data-parallel ``group``
+    (whose stop read is an all-reduce a step) and without gradients."""
+    return enc.is_cuda and group is None and not torch.is_grad_enabled()
+
+
+class _NoteGraphs:
+    """One decoder's ``_NoteGraph``s, captured once per shape (rows, stop
+    groups, dtype, device, enc's length, K). A copy or a pickle of the
+    decoder starts with none."""
+
+    def __init__(self):
+        self._by_shape = {}
+
+    def __reduce__(self):
+        return _NoteGraphs, ()
+
+    def bound(self, p: DualDecodeParams, cfg: ModelConfig,
+              enc: torch.Tensor, enc_proj2: torch.Tensor,
+              chunk: Optional[int]) -> _NoteGraph:
+        """The graph of this shape, captured at its first use, holding
+        this forward's operands."""
+        key = (enc.shape[0], enc.shape[0] // chunk if chunk else 1,
+               enc.dtype, enc.device, enc.shape[1], GRAPH_STEPS)
+        graph = self._by_shape.get(key)
+        if graph is not None:
+            return graph.bind(p, enc, enc_proj2)
+        graph = _NoteGraph(p, cfg, enc, enc_proj2, chunk, GRAPH_STEPS).bind(
+            p, enc, enc_proj2).capture()
+        self._by_shape[key] = graph
+        return graph
 
 
 def pick_decode_chunk(decode_chunk, batch: int,
@@ -693,6 +917,7 @@ class HierarchicalDecoder(nn.Module):
         self.key_out = _mlp(cfg, cfg.num_keys)
         self.upper_decoder = NoteDecoder(cfg)
         self.lower_decoder = NoteDecoder(cfg)
+        self._note_graphs = _NoteGraphs()
 
     def staff_summaries(self, tokens: torch.Tensor,
                         lengths: torch.Tensor) -> torch.Tensor:
@@ -745,6 +970,12 @@ class HierarchicalDecoder(nn.Module):
         in groups of that many rows; ignored under ``group``, as the JAX
         package ignores it under a mesh.
 
+        On a card, without ``group`` and without gradients, the note
+        decoders run as replayed CUDA graphs (``_NoteGraph``, captured at
+        a shape's first forward and kept on this module); otherwise, one
+        step at a time (``note_decoder_dual_infer``). Both give the same
+        outputs.
+
         Each bar's note decoders run in a span ``decode/notes``
         (``utils.profiling``; a record, no kineto range).
         """
@@ -756,6 +987,8 @@ class HierarchicalDecoder(nn.Module):
         enc_dec, enc_proj2 = self._note_operands(enc, decode_dtype)
         dual = dual_decode_params(self.upper_decoder, self.lower_decoder,
                                   cfg, decode_dtype)
+        graph = (self._note_graphs.bound(dual, cfg, enc_dec, enc_proj2, chunk)
+                 if runs_as_graph(enc, group) else None)
 
         token = self.sos_token(B, dev)
         t_s = max(cfg.max_length)
@@ -768,10 +1001,11 @@ class HierarchicalDecoder(nn.Module):
                                      hidden)
             hidden = bar_summary
             with P.span("decode/notes", ranged=False):
-                (up_logp, up_tok, up_len), (low_logp, low_tok, low_len) = \
-                    note_decoder_dual_infer(dual, cfg, enc_dec, enc_proj2,
-                                            bar_summary.to(enc_dec.dtype),
+                h0 = bar_summary.to(enc_dec.dtype)
+                (up_logp, up_tok, up_len), (low_logp, low_tok, low_len) = (
+                    note_decoder_dual_infer(dual, cfg, enc_dec, enc_proj2, h0,
                                             group, chunk)
+                    if graph is None else graph.decode(h0))
             head_in = torch.cat([bar_summary, context], dim=-1)
             ts_logp = torch.log_softmax(self.time_sig_out(head_in), dim=-1)
             key_logp = torch.log_softmax(self.key_out(head_in), dim=-1)
