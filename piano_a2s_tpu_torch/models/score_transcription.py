@@ -33,6 +33,7 @@ each stops on its own.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional, Tuple
@@ -41,7 +42,6 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention as A
 from ..ops import gru as G
@@ -423,6 +423,28 @@ def _per_staff(logps, preds, lengths, caps) -> tuple:
 GRAPH_STEPS = 16
 
 
+@contextlib.contextmanager
+def _workspaces_in_pool():
+    """Around a CUDA graph capture: cuBLAS keeps a workspace for each pair
+    of handle (one a thread) and stream, 32 MiB on an H100, allocated at
+    the pair's first matmul and held for the process. Cleared before the
+    capture, the pairs the capture uses allocate theirs inside the graph's
+    private pool; cleared after, those return to the pool, free: the
+    graph's kernels go on using them, and only a capture into that pool
+    allocates there. So a graph holds no allocated memory for them (a
+    capture's side stream would otherwise hold 32 MiB for the process, and
+    the teacher graphs' two threads 64). Every capture in the port does
+    this, so a clear never frees a workspace a graph uses outside its pool
+    (as PyTorch's inductor does around its graphs); the pairs outside any
+    capture allocate theirs again at their next matmul."""
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    try:
+        yield
+    finally:
+        torch._C._cuda_clearCublasWorkspaces()
+
+
 class _NoteGraph:
     """The greedy note decode of one shape (rows, stop groups, dtype,
     device, enc's length) as a CUDA graph of ``k`` steps, replayed until
@@ -530,7 +552,7 @@ class _NoteGraph:
                 self._block()
         torch.cuda.current_stream(dev).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev), torch.cuda.graph(
+        with torch.cuda.device(dev), _workspaces_in_pool(), torch.cuda.graph(
                 graph, stream=stream, capture_error_mode="thread_local"):
             self._block()
         self.graph = graph
@@ -588,16 +610,20 @@ def runs_as_graph(enc: torch.Tensor, group=None) -> bool:
     return enc.is_cuda and group is None and not torch.is_grad_enabled()
 
 
-class _NoteGraphs:
-    """One decoder's ``_NoteGraph``s, captured once per shape (rows, stop
-    groups, dtype, device, enc's length, K). A copy or a pickle of the
-    decoder starts with none."""
+class _GraphCache:
+    """One decoder's captured CUDA graphs, by shape. A copy or a pickle of
+    the decoder starts with none."""
 
     def __init__(self):
         self._by_shape = {}
 
     def __reduce__(self):
-        return _NoteGraphs, ()
+        return type(self), ()
+
+
+class _NoteGraphs(_GraphCache):
+    """One decoder's ``_NoteGraph``s, captured once per shape (rows, stop
+    groups, dtype, device, enc's length, K)."""
 
     def bound(self, p: DualDecodeParams, cfg: ModelConfig,
               enc: torch.Tensor, enc_proj2: torch.Tensor,
@@ -747,17 +773,17 @@ def _teacher_step(emit_full: bool, enc: torch.Tensor,
     ground truth where the staff's coin says so, else the prediction).
 
     Deterministic in its inputs (the dropout scale ``drop2``, the coins and
-    the guide are made by the caller), so a checkpointed call recomputes
-    it exactly. Every tensor it reads is an argument, the stacked staff
-    weights last (``_stack_staves``), so the reentrant checkpoint passes
-    gradients to all of them. Returns (h2, next token embeddings, emitted
-    (2, B[, V]), prediction (2, B), guided-attention penalty (2, B) float32
-    or None).
+    the guide are made by the caller), so the backward's recompute
+    (``_teacher_sweep``) gives exactly the forward's values. Every tensor
+    it reads is an argument, the stacked staff weights last
+    (``_stack_staves``), so the sweep differentiates with respect to all
+    of them. Returns (h2, next token embeddings, emitted (2, B[, V]),
+    prediction (2, B), guided-attention penalty (2, B) float32 or None).
 
-    With gradients on it runs as the reentrant checkpoint's recompute, in
-    the backward, on the thread autograd runs it on; while tracing it
-    counts ``train.recompute_ns`` (its host wall) there
-    (``utils.profiling``).
+    With gradients on it runs as that recompute; while tracing it counts
+    ``train.recompute_ns`` (its host wall) on the thread that runs the
+    sweep (``utils.profiling``). A sweep replayed as a CUDA graph runs no
+    Python, so counts nothing.
     """
     recompute = P.active() and torch.is_grad_enabled()
     if recompute:
@@ -789,6 +815,314 @@ def _teacher_step(emit_full: bool, enc: torch.Tensor,
     return h2, nxt, emitted, pred2, pen
 
 
+@dataclasses.dataclass
+class _BarOut:
+    """A teacher-forced bar's outputs: emitted (T, 2, B[, V]) in at least
+    float32, preds (T, 2, B), ga (2, B) float32 (the penalty summed over
+    the steps, zero without guides) and, for the backward, each step's
+    input state: h2s (T, 2, B, 2H) and toks (T, 2, B, E)."""
+    emitted: torch.Tensor
+    preds: torch.Tensor
+    ga: torch.Tensor
+    h2s: torch.Tensor
+    toks: torch.Tensor
+
+    @staticmethod
+    def empty(emit_full: bool, enc: torch.Tensor, h0: torch.Tensor,
+              gt2: torch.Tensor, emb: torch.Tensor) -> "_BarOut":
+        _, B, T = gt2.shape
+        V, E = emb.shape[1:]
+        dev = enc.device
+
+        def new(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        return _BarOut(
+            new((T, 2, B, V) if emit_full else (T, 2, B),
+                L.float32_or_wider(enc.dtype)),
+            new((T, 2, B), torch.long), new((2, B), torch.float32),
+            new((T, 2) + tuple(h0.shape), h0.dtype),
+            new((T, 2, B, E), emb.dtype))
+
+    def clone(self) -> "_BarOut":
+        return _BarOut(*(getattr(self, f.name).clone()
+                         for f in dataclasses.fields(self)))
+
+
+def _teacher_loop(emit_full: bool, sos: int, out: _BarOut,
+                  enc: torch.Tensor, enc_proj2: torch.Tensor,
+                  h0: torch.Tensor, gt2: torch.Tensor,
+                  drops: Optional[torch.Tensor], coins: torch.Tensor,
+                  guides: Optional[torch.Tensor], *weights: torch.Tensor
+                  ) -> None:
+    """The bar's T = gt2.shape[2] steps of ``_teacher_step``, both staves
+    from the bar summary ``h0`` (B, 2H) and <sos>, written into ``out``:
+    each step's emitted log-probs and prediction, the guided-attention
+    penalty summed over the steps (``guides`` (T, 2, B, T_enc) or None)
+    and each step's input state. ``gt2`` (2, B,
+    T) is the ground truth, ``drops`` (T, 2, B, E) the token dropout
+    scales or None, ``coins`` (T, 2) the teacher-forcing coins."""
+    h2 = torch.stack([h0, h0])
+    tok2 = _embed2(weights[0], torch.full_like(gt2[:, :, 0], sos))
+    ga = torch.zeros_like(out.ga)
+    for t in range(gt2.shape[2]):
+        out.h2s[t] = h2
+        out.toks[t] = tok2
+        h2, tok2, out.emitted[t], out.preds[t], pen = _teacher_step(
+            emit_full, enc, enc_proj2, h2, tok2,
+            None if drops is None else drops[t], gt2[:, :, t],
+            None if guides is None else guides[t], coins[t], *weights)
+        if pen is not None:
+            ga = ga + pen
+    out.ga.copy_(ga)
+
+
+def _teacher_sweep(emit_full: bool, sos: int, h2s: torch.Tensor,
+                   toks: torch.Tensor, g_emit: torch.Tensor,
+                   g_ga: torch.Tensor, enc: torch.Tensor,
+                   enc_proj2: torch.Tensor, gt2: torch.Tensor,
+                   drops: Optional[torch.Tensor], coins: torch.Tensor,
+                   guides: Optional[torch.Tensor], *weights: torch.Tensor
+                   ) -> list:
+    """The backward of ``_teacher_loop``: for t = T-1 .. 0, step t
+    recomputed with gradients on from its kept input state (``h2s[t]``,
+    ``toks[t]``), then ``torch.autograd.grad`` of its emitted log-probs,
+    its penalty (with guides) and, but for the last step, its next state
+    and next token embedding, against the gradients carried from step
+    t + 1 (``g_emit[t]``, ``g_ga``), with respect to its input state, enc,
+    enc_proj2 and the weights. The gradient into the next token runs
+    through the embedding gather, the dropout scale and the coin's
+    ``where``, as autograd traces an unrolled loop. Returns the gradients
+    of (enc, enc_proj2, h0, *weights); the first step's <sos> embedding
+    adds its part to the embedding table's."""
+    leaves = [x.detach().requires_grad_()
+              for x in (enc, enc_proj2) + tuple(weights)]
+    sums = [None] * len(leaves)
+    g_h = g_tok = None
+    with torch.enable_grad():
+        for t in reversed(range(gt2.shape[2])):
+            h2 = h2s[t].detach().requires_grad_()
+            tok2 = toks[t].detach().requires_grad_()
+            h2_next, tok_next, emitted, _, pen = _teacher_step(
+                emit_full, leaves[0], leaves[1], h2, tok2,
+                None if drops is None else drops[t], gt2[:, :, t],
+                None if guides is None else guides[t], coins[t],
+                *leaves[2:])
+            outs, grads_in = [emitted], [g_emit[t]]
+            if pen is not None:
+                outs.append(pen)
+                grads_in.append(g_ga)
+            if g_h is not None:
+                outs += [h2_next, tok_next]
+                grads_in += [g_h, g_tok]
+            g_h, g_tok, *parts = torch.autograd.grad(
+                outs, [h2, tok2] + leaves, grads_in, allow_unused=True)
+            sums = [s if g is None else g if s is None else s + g
+                    for s, g in zip(sums, parts)]
+    sums = [torch.zeros_like(x) if s is None else s
+            for s, x in zip(sums, leaves)]
+    sos2 = torch.full_like(gt2[:, :, 0], sos)
+    sums[2] = sums[2].index_put(
+        (torch.arange(2, device=sos2.device)[:, None], sos2), g_tok,
+        accumulate=True)
+    return sums[:2] + [g_h[0] + g_h[1]] + sums[2:]
+
+
+class _TeacherGraph:
+    """One shape of a bar's teacher-forced decode with gradients (rows,
+    steps, enc's length, dtype, device, ``emit_full``, dropout and guides
+    on or off) as two CUDA graphs: the forward's steps (``_teacher_loop``)
+    and the backward's sweep (``_teacher_sweep``), captured once and
+    replayed for every bar of that shape.
+
+    The graphs read and write only static buffers made here. Before every
+    replay the call's operands are copied in (``_bind``; the weights
+    change every optimizer step). The sweep writes each gradient over the
+    buffer of the operand it belongs to (they have its shape and dtype),
+    so the pair holds no buffers of its own for them, only what the next
+    bind overwrites. The five bars of a step replay one pair, so each
+    replay overwrites the last one's buffers: what the forward returns and
+    keeps for its bar, and the gradients the backward returns, are copies
+    (autograd may keep a returned gradient as its own buffer, and add the
+    next bar's into it).
+
+    Captured in ``thread_local`` mode: the sweep's ``torch.autograd.grad``
+    runs its backward ops on autograd's device thread, and they join the
+    capture because they go to the capturing stream (autograd runs a
+    backward op on its forward op's stream), whatever the thread; the
+    mode only decides which threads may not make unsafe calls meanwhile,
+    and leaves other threads free to use the card (a process group's
+    watchdog, a server's worker), as ``_NoteGraph``'s capture does.
+    """
+
+    def __init__(self, emit_full: bool, sos: int, operands: tuple):
+        """``operands``: what ``_TeacherBar`` takes, (enc, enc_proj2, h0,
+        gt2, drops, coins, guides, *weights)."""
+        self.emit_full, self.sos = emit_full, sos
+        self.ops = [None if x is None else torch.empty_like(x)
+                    for x in operands]
+        enc, _, h0, gt2 = self.ops[:4]
+        self.out = _BarOut.empty(emit_full, enc, h0, gt2, self.ops[7])
+        self.g_emit = torch.empty_like(self.out.emitted)
+        self.g_ga = torch.empty_like(self.out.ga)
+        self.fwd = self.bwd = None
+
+    @torch.no_grad()
+    def _bind(self, operands: tuple) -> None:
+        for buf, x in zip(self.ops, operands):
+            if buf is not None and x is not None:
+                buf.copy_(x)
+
+    def _forward(self) -> None:
+        with torch.no_grad():
+            _teacher_loop(self.emit_full, self.sos, self.out, *self.ops)
+
+    def _backward(self) -> None:
+        enc, enc_proj2, h0, gt2, drops, coins, guides, *weights = self.ops
+        grads = _teacher_sweep(self.emit_full, self.sos, self.out.h2s,
+                               self.out.toks, self.g_emit, self.g_ga, enc,
+                               enc_proj2, gt2, drops, coins, guides, *weights)
+        with torch.no_grad():
+            for buf, g in zip([enc, enc_proj2, h0] + weights, grads):
+                buf.copy_(g)
+
+    def capture(self, operands: tuple) -> "_TeacherGraph":
+        """Run both halves eagerly (twice) on a side stream, then capture
+        them into one memory pool (the forward's replay and the sweep's
+        never overlap: one stream, one step at a time)."""
+        dev = self.ops[0].device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for _ in range(2):
+                self._bind(operands)
+                self._forward()
+                self.g_emit.zero_()
+                self.g_ga.zero_()
+                self._backward()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), _workspaces_in_pool():
+            with torch.cuda.graph(self.fwd, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self._forward()
+            with torch.cuda.graph(self.bwd, pool=self.fwd.pool(),
+                                  stream=stream,
+                                  capture_error_mode="thread_local"):
+                self._backward()
+        return self
+
+    def forward(self, operands: tuple) -> _BarOut:
+        self._bind(operands)
+        self.fwd.replay()
+        return self.out.clone()
+
+    def backward(self, h2s: torch.Tensor, toks: torch.Tensor,
+                 g_emit: torch.Tensor, g_ga: torch.Tensor,
+                 operands: tuple) -> list:
+        """The sweep's gradients, as ``_teacher_sweep`` returns them, for
+        ``operands`` without h0 (None in its place)."""
+        self._bind(operands)
+        with torch.no_grad():
+            self.out.h2s.copy_(h2s)
+            self.out.toks.copy_(toks)
+            self.g_emit.copy_(g_emit)
+            self.g_ga.copy_(g_ga)
+        self.bwd.replay()
+        return [x.clone() for x in self.ops[:3] + self.ops[7:]]
+
+
+class _TeacherBar(torch.autograd.Function):
+    """A bar's teacher-forced note decode with gradients, as one autograd
+    node: apply(graph, emit_full, sos, enc, enc_proj2, h0, gt2, drops,
+    coins, guides, *weights) -> (emitted (T, 2, B[, V]), preds (T, 2, B),
+    ga (2, B)), as ``_teacher_loop`` computes them.
+
+    The forward runs the T steps without autograd and keeps each step's
+    input state (``h2s``, ``toks``: 2 x B x (2H + E) numbers a step); the
+    backward recomputes and differentiates them one step at a time from
+    the last (``_teacher_sweep``), so a step's activations, its (2, B,
+    T_enc, H) attention energies included, live only while it is swept.
+    With ``graph`` (a captured ``_TeacherGraph`` of this shape) both
+    halves are its replays; without, they run eagerly (the CPU), the same
+    code the graphs hold. Guided attention (``guides``) runs inside the
+    graphs too. No collective: under data parallelism the operands are
+    this rank's rows (the dropout scales cut from the global batch's by
+    the caller) and the gradients are summed over the ranks after the
+    backward.
+
+    While tracing, each half counts on the innermost open span of its
+    thread (or as a bare count; autograd's device thread has no span on a
+    card): ``teacher_steps`` (the steps it ran, T) and
+    ``teacher_graph_steps`` (those it ran inside a replay).
+    """
+
+    @staticmethod
+    def forward(ctx, graph, emit_full, sos, *operands):
+        enc, enc_proj2, h0, gt2, drops, coins, guides, *weights = operands
+        if graph is None:
+            out = _BarOut.empty(emit_full, enc, h0, gt2, weights[0])
+            _teacher_loop(emit_full, sos, out, *operands)
+        else:
+            out = graph.forward(operands)
+        _count_teacher_steps(gt2.shape[2], graph)
+        ctx.graph, ctx.emit_full, ctx.sos = graph, emit_full, sos
+        ctx.save_for_backward(out.h2s, out.toks, enc, enc_proj2, gt2, drops,
+                              coins, guides, *weights)
+        ctx.mark_non_differentiable(out.preds)
+        if guides is None:
+            ctx.mark_non_differentiable(out.ga)
+        return out.emitted, out.preds, out.ga
+
+    @staticmethod
+    def backward(ctx, g_emit, _, g_ga):
+        h2s, toks, enc, enc_proj2, gt2, drops, coins, guides, *weights = \
+            ctx.saved_tensors
+        graph = ctx.graph
+        if graph is None:
+            grads = _teacher_sweep(ctx.emit_full, ctx.sos, h2s, toks, g_emit,
+                                   g_ga, enc, enc_proj2, gt2, drops, coins,
+                                   guides, *weights)
+        else:
+            grads = graph.backward(h2s, toks, g_emit, g_ga, (
+                enc, enc_proj2, None, gt2, drops, coins, guides, *weights))
+        _count_teacher_steps(gt2.shape[2], graph)
+        g_enc, g_enc_proj2, g_h0, *g_weights = grads
+        return (None, None, None, g_enc, g_enc_proj2, g_h0, None, None, None,
+                None, *g_weights)
+
+
+def _count_teacher_steps(steps: int, graph) -> None:
+    P.count("teacher_steps", steps)
+    if graph is not None:
+        P.count("teacher_graph_steps", steps)
+
+
+def teacher_runs_as_graph(enc: torch.Tensor) -> bool:
+    """Whether a teacher-forced bar of ``enc`` runs as replayed CUDA graphs
+    (``_TeacherGraph``): on a card, with gradients on (data parallelism
+    included: the bar runs no collective). Without gradients the bar is
+    the plain loop, on every device."""
+    return enc.is_cuda and torch.is_grad_enabled()
+
+
+class _TeacherGraphs(_GraphCache):
+    """One decoder's ``_TeacherGraph``s, captured once per shape."""
+
+    def bound(self, emit_full: bool, sos: int,
+              operands: tuple) -> _TeacherGraph:
+        """The graph pair of these operands' shape, captured at its first
+        use."""
+        enc, _, _, gt2, drops, _, guides = operands[:7]
+        key = (emit_full, sos, tuple(enc.shape), enc.dtype, enc.device,
+               tuple(gt2.shape), drops is None, guides is None)
+        graph = self._by_shape.get(key)
+        if graph is None:
+            graph = _TeacherGraph(emit_full, sos, operands).capture(operands)
+            self._by_shape[key] = graph
+        return graph
+
+
 def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
                            enc: torch.Tensor, enc_proj2: torch.Tensor,
                            h0: torch.Tensor, gt_up: torch.Tensor,
@@ -800,7 +1134,8 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
                            ga_dur_frac: Optional[torch.Tensor] = None,
                            ga_content: Optional[torch.Tensor] = None,
                            ga_map: str = "auto", group=None,
-                           rows: Optional[Tuple[int, int]] = None):
+                           rows: Optional[Tuple[int, int]] = None,
+                           graphs: Optional["_TeacherGraphs"] = None):
     """Teacher-forced decode of one bar, both staves in one loop of
     max(T_up, T_low) steps, each staff's cap T_s the width of its ground
     truth ``gt_up`` (B, T_up) and ``gt_low`` (B, T_low); the narrower
@@ -813,11 +1148,15 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
     ((B, T) per staff instead of (B, T, V)). ``lengths2`` (2, B) are the
     staves' lengths (``_note_lengths`` of the ground truth).
 
-    With gradients on, each step runs under a reentrant activation
-    checkpoint: the forward keeps no activations (it runs without autograd)
-    and the backward recomputes the step, (2, B, T_enc, H) attention
-    energies included. The steps' dropout scales and coins are drawn here,
-    before the checkpointed function, so the recompute sees the same ones.
+    With gradients on, the bar is one autograd node (``_TeacherBar``): its
+    forward keeps each step's input state and no activation, and its
+    backward recomputes the steps one at a time from the last, (2, B,
+    T_enc, H) attention energies included. On a card (CUDA tensors) both
+    halves replay CUDA graphs captured at a shape's first bar and kept in
+    ``graphs`` (the decoder's); the graphs' buffers are shared, so one
+    training step at a time per decoder. Without gradients the steps run
+    as a plain loop. The steps' dropout scales and coins are drawn here,
+    before the steps, so the recompute sees the same ones.
 
     ga_frac=(bar_start, bar_span) turns on the guided-attention penalty:
     step t is expected to attend at bar_start + bar_span * within(t) of
@@ -835,12 +1174,11 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
     T = max(t_up, t_low)
     gt2 = torch.stack([F.pad(gt_up, (0, T - t_up), value=cfg.pad),
                        F.pad(gt_low, (0, T - t_low), value=cfg.pad)]).long()
-    tok2 = _embed2(weights[0], torch.full((2, B), cfg.sos, dtype=torch.long,
-                                          device=dev))
+    emb = weights[0]
     drops = None
     if train:
-        drops = _dropout(torch.ones((T,) + tok2.shape, device=dev,
-                                    dtype=L.float32_or_wider(tok2.dtype)),
+        drops = _dropout(torch.ones((T, 2, B, emb.shape[-1]), device=dev,
+                                    dtype=L.float32_or_wider(emb.dtype)),
                          0.1, train, generator, group, axis=2, rows=rows)
     coins = torch.rand((T, 2), generator=generator, device=dev) < tf_ratio
     guides = None
@@ -864,25 +1202,17 @@ def note_decoder_dual_scan(weights: tuple, cfg: ModelConfig,
                                  / (2.0 * ga_sigma ** 2))  # (T, 2, B, T_enc)
         guides = guides * (gt2 != cfg.pad).permute(2, 0, 1)[..., None]
 
-    h2 = torch.stack([h0, h0])
-    ga = torch.zeros((2, B), dtype=torch.float32, device=dev)
-    emitted, preds = [], []
-    for t in range(T):
-        args = (emit_full, enc, enc_proj2, h2, tok2,
-                None if drops is None else drops[t], gt2[:, :, t],
-                None if guides is None else guides[t], coins[t]) + weights
-        if torch.is_grad_enabled():
-            outs = checkpoint(_teacher_step, *args, use_reentrant=True,
-                              preserve_rng_state=False)
-        else:
-            outs = _teacher_step(*args)
-        h2, tok2, e, pred2, pen = outs
-        if pen is not None:
-            ga = ga + pen
-        emitted.append(e)
-        preds.append(pred2)
-    logps = torch.stack(emitted)                      # (T, 2, B[, V])
-    toks = torch.stack(preds)                         # (T, 2, B)
+    operands = (enc, enc_proj2, h0, gt2, drops, coins, guides) + tuple(weights)
+    if torch.is_grad_enabled():
+        graph = (graphs.bound(emit_full, cfg.sos, operands)
+                 if graphs is not None and teacher_runs_as_graph(enc)
+                 else None)
+        logps, toks, ga = _TeacherBar.apply(graph, emit_full, cfg.sos,
+                                            *operands)
+    else:
+        out = _BarOut.empty(emit_full, enc, h0, gt2, emb)
+        _teacher_loop(emit_full, cfg.sos, out, *operands)
+        logps, toks, ga = out.emitted, out.preds, out.ga
     up = (logps[:t_up, 0].transpose(0, 1), toks[:t_up, 0].transpose(0, 1))
     low = (logps[:t_low, 1].transpose(0, 1),
            toks[:t_low, 1].transpose(0, 1))
@@ -918,6 +1248,7 @@ class HierarchicalDecoder(nn.Module):
         self.upper_decoder = NoteDecoder(cfg)
         self.lower_decoder = NoteDecoder(cfg)
         self._note_graphs = _NoteGraphs()
+        self._teacher_graphs = _TeacherGraphs()
 
     def staff_summaries(self, tokens: torch.Tensor,
                         lengths: torch.Tensor) -> torch.Tensor:
@@ -1069,6 +1400,12 @@ class HierarchicalDecoder(nn.Module):
         behind the lengths and the length check are the global batch's,
         from one all-reduce, so every rank raises or none does; dropout
         masks are this rank's rows of the global ones, at ``rows``.
+
+        With gradients on, each bar's note decoders are one autograd node
+        (``_TeacherBar``); on a card its forward and backward replay CUDA
+        graphs captured at a shape's first bar and kept on this module
+        (``_TeacherGraph``), whose buffers every bar of that shape shares:
+        one training step at a time per model instance.
         """
         cfg = self.cfg
         B, dev = enc.shape[0], enc.device
@@ -1135,7 +1472,7 @@ class HierarchicalDecoder(nn.Module):
                     ga_frac=(j / bars, 1.0 / bars) if use_ga else None,
                     ga_sigma=ga_sigma, ga_dur_frac=ga_dur_frac,
                     ga_content=ga_content, ga_map=ga_map, group=group,
-                    rows=rows)
+                    rows=rows, graphs=self._teacher_graphs)
             head_in = torch.cat([bar_summary, context], dim=-1)
             ts_logp = torch.log_softmax(self.time_sig_out(head_in), dim=-1)
             key_logp = torch.log_softmax(self.key_out(head_in), dim=-1)

@@ -25,10 +25,10 @@ the gradients as one flat buffer after the backward (after the last
 microbatch) and the loss numerators, and divides by the totals of the
 global targets. So the norm, the clip, the skip on a non-finite value, the
 BatchNorm buffers and Adadelta agree on every rank, and equal one rank's
-step on the whole batch. No DDP wrapper: the teacher-forced decode's ~2000
-checkpointed steps read the same decoder weights, where DDP's reducer
-expects one ready event per parameter per backward, and it would average
-a loss that is already divided by global totals.
+step on the whole batch. No DDP wrapper: the teacher-forced decode's bars
+(one autograd node each) read the same decoder weights, where DDP's
+reducer expects one ready event per parameter per backward, and it would
+average a loss that is already divided by global totals.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ Off (no torch.profiler recording), ``span`` and ``count`` keep nothing and
 open no record_function. Under the profiler each span is a kineto range of
 its name and a record on the same host clock; the greedy decode counts its
 steps, stop reads and rows on one ``decode/notes`` span a bar (no span a
-step), and the teacher-forced step counts each checkpointed recompute.
+step), and the teacher-forced step counts each recompute of its backward
+sweep.
 """
 
 import statistics
@@ -264,6 +265,6 @@ def test_the_train_step_counts_one_recompute_per_teacher_step(monkeypatch):
     # the backward's span; on a card, on its own thread, as bare counts.
     assert backward.counts["train.recompute_ns"] == _total(
         recs, "train.recompute_ns")
-    # The forward runs the checkpointed steps without gradients: no count.
+    # The forward runs the steps without gradients: no count.
     forward, = _spans(recs, "train_step/forward")
     assert "train.recompute_ns" not in forward.counts
