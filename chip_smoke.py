@@ -19,6 +19,12 @@ Phases, each of which raises on failure:
       magnitude and after log_compress (taken in float64), and
       |kernel - plain| < 1e-4 on the magnitude. Then both times at
       16 x 12 s, in turns plain, kernel, kernel, plain.
+  (c2) K2, the greedy note-decoder step kernel (csrc/note_step.cu), at 16
+      rows of 1201 frames with both staves active and with the upper one
+      only: its log-probs against the torch-op step run in float64 (at
+      most twice the torch-op step's own float32 error, or 1e-5), then
+      both steps' time a step, each replayed as a CUDA graph of 16 steps
+      (CUDA events), beside the step's bound (its bytes at 3.35 TB/s).
   (d) full-width model on one 12 s clip, GPU against the port's CPU path
       (random weights from seed 0): spectrogram within 1e-4, encoder
       output within 1e-3, decode log-probs within 1e-3 up to the first
@@ -198,7 +204,11 @@ call, and (n3)'s load test, once a dynamic batch, the prepare path over
 (m3)'s epoch, once per train and eval batch, and serving with stop groups
 over (o1)'s two batches, once a batch; (o4)'s ranks add their launches,
 once per rank per microbatch, to data-parallel training's. Each path
-must have launched every kernel it runs. The line before the last
+must have launched every kernel it runs. K2's launches are counted over
+the same stretches (zeroed with the VQT kernel's, 4 a step and 1 a bar,
+graph replays included), and (o3)'s in-process calls as a path of their
+own: every float32 greedy path on the card (``K2_PATHS``) must have
+launched it, the bf16 serving path never. The line before the last
 holds the kernels' JSON record (``launches`` is the sum over the paths,
 ``launches_by_path`` each path's count); the last line is the result
 object.
@@ -209,6 +219,7 @@ The run prints its total seconds before the kernels' record.
 """
 
 import contextlib
+import copy
 import gc
 import io
 import json
@@ -432,6 +443,179 @@ def phase_kernel_vs_plain(torch, tvqt, launches_of):
           f"the kernel's three TF32 products are {3 * gflop:.1f} GFLOP of "
           f"tensor-core work -> {3 * gflop / ms:.1f} TFLOP/s")
     return worst, err_f64, plain_err_f64, ms, plain_ms
+
+
+K2_ROWS, K2_FRAMES, K2_STEPS = 16, 1201, 16
+
+
+def note_step_bound(cfg, rows, frames, staves):
+    """(ms, bytes) of the least time of one greedy note step of ``rows``
+    rows with ``staves`` staves active: enc read once, each active staff's
+    projected enc rows and its weights, the states read and written and
+    the log-probs written, at 3.35 TB/s (the step is bandwidth-bound)."""
+    h, v, e = cfg.hidden_size, cfg.vocab_size, cfg.note_emb_size
+    weights = (2 * h * (3 * 2 * h + h) + (e + 2 * h) * 3 * 2 * h + h
+               + 4 * h * v + v + 2 * 3 * 2 * h)
+    per_row = frames * h + 2 * 2 * h + v + e
+    nbytes = 4 * (rows * frames * 2 * h + staves * (weights + rows * per_row))
+    return 1e3 * nbytes / HBM_BYTES_PER_S, nbytes
+
+
+def phase_note_step(torch, tmodels):
+    """(c2) K2, the note-decoder step kernel, at (16 rows, 1201 frames) with
+    both staves active and with the upper one only: its log-probs against
+    the torch-op step in float64, beside the torch-op step's own float32
+    error; then both steps' device time a step, each replayed as a CUDA
+    graph of K2_STEPS steps, beside the step's bound."""
+    from piano_a2s_tpu_torch.models import score_transcription as tst
+    from piano_a2s_tpu_torch.ops import _build
+    from piano_a2s_tpu_torch.ops.note_step_cuda import note_step_cuda
+    build = _build.build("note_step")
+    print(f"(c2) built {build.path} in {build.seconds:.2f} s")
+    note_step_cuda.launches = 0
+    for line in build.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"(c2) ptxas: {line.strip()}")
+    dev = torch.device("cuda")
+    cfg = tmodels.ModelConfig()
+    model = tmodels.ScoreTranscription(cfg)
+    model.load_state_dict(tmodels.init_state_dict(cfg, seed=0))
+    dec = model.decoder.to(dev)
+    with torch.no_grad():
+        for d in (dec.upper_decoder, dec.lower_decoder):
+            d.out.bias[cfg.eos] -= 20.0   # no group stops while timed
+    rng = np.random.RandomState(7)
+    enc = torch.tensor(np.tanh(rng.randn(K2_ROWS, K2_FRAMES, 512))
+                       .astype(np.float32), device=dev)
+    h0 = torch.tensor(np.tanh(rng.randn(K2_ROWS, 512)).astype(np.float32),
+                      device=dev)
+    k2 = tst.uses_k2
+    results = {}
+    ops = {}
+    with torch.no_grad():
+        for name, d in (("f32", dec), ("f64", copy.deepcopy(dec).double())):
+            e_dec, e_proj2 = d._note_operands(enc.to(d.attn.v.weight.dtype),
+                                              None)
+            p = tst.dual_decode_params(d.upper_decoder, d.lower_decoder, cfg)
+            ops[name] = (p, e_dec, e_proj2)
+    try:
+        with torch.inference_mode():
+            sos = torch.full((2, K2_ROWS), cfg.sos, dtype=torch.long,
+                             device=dev)
+
+            def state(name, t0):
+                p, e, _ = ops[name]
+                st = tst._DecodeState(p, cfg, e, None).bind(p)
+                st.reset(p, h0.to(e.dtype), tst._tok_proj(p, sos))
+                st.t.fill_(t0)
+                return st
+
+            def run_steps(name, st, t0, n):
+                p, e, ep = ops[name]
+                logp = torch.empty((n, 2, K2_ROWS, cfg.vocab_size),
+                                   dtype=torch.float32 if name == "f32"
+                                   else torch.float64, device=dev)
+                pred = torch.empty((n, 2, K2_ROWS), dtype=torch.long,
+                                   device=dev)
+
+                def steps():
+                    st.t.fill_(t0)
+                    for i in range(n):
+                        tst._masked_step(p, cfg, e, ep, st, logp[i], pred[i])
+                return steps, logp, pred
+
+            for label, t0, staves in (("both staves", 0, 2),
+                                      ("upper staff only", 200, 1)):
+                got = {}
+                for name, fused in (("k2", True), ("f32", False),
+                                    ("f64", False)):
+                    tst.uses_k2 = (lambda x, f=fused: f and x.is_cuda
+                                   and x.dtype == torch.float32)
+                    key = "f32" if name == "k2" else name
+                    st = state(key, t0)
+                    steps, logp, pred = run_steps(key, st, t0, 4)
+                    steps()
+                    torch.cuda.synchronize()
+                    got[name] = (logp.double(), pred)
+                tst.uses_k2 = k2
+                ref_logp, ref_pred = got["f64"]
+                err = (got["k2"][0] - ref_logp).abs().max().item()
+                plain_err = (got["f32"][0] - ref_logp).abs().max().item()
+                same = torch.equal(got["k2"][1], ref_pred)
+                print(f"(c2) K2 step at ({K2_ROWS}, {K2_FRAMES}), {label}: "
+                      f"log-probs against float64 {err:.3e} (the torch-op "
+                      f"step in float32 {plain_err:.3e}); tokens equal to "
+                      f"float64's: {same}")
+                check(err <= max(2 * plain_err, 1e-5),
+                      f"(c2) K2 as accurate as the torch-op step ({label})")
+
+                def timed(fused):
+                    tst.uses_k2 = (lambda x, f=fused: f and x.is_cuda
+                                   and x.dtype == torch.float32)
+                    st = state("f32", t0)
+                    steps, _, _ = run_steps("f32", st, t0, K2_STEPS)
+                    side = torch.cuda.Stream(dev)
+                    side.wait_stream(torch.cuda.current_stream(dev))
+                    with torch.cuda.stream(side):
+                        steps()
+                    torch.cuda.current_stream(dev).wait_stream(side)
+                    graph = torch.cuda.CUDAGraph()
+                    with tst._workspaces_in_pool(), torch.cuda.graph(
+                            graph, stream=side):
+                        steps()
+                    tst.uses_k2 = k2
+                    return cuda_ms(graph.replay) / K2_STEPS
+
+                t_plain = [timed(False)]
+                t_k2 = [timed(True), timed(True)]
+                t_plain.append(timed(False))
+                ms = float(np.median(t_k2))
+                plain_ms = float(np.median(t_plain))
+                bound_ms, nbytes = note_step_bound(cfg, K2_ROWS, K2_FRAMES,
+                                                   staves)
+                print(f"(c2) step time, {label}: K2 {t_k2} ms, torch-op "
+                      f"step {t_plain} ms (graphs of {K2_STEPS} steps, "
+                      f"median of 20 replays each); bound {bound_ms:.4f} ms "
+                      f"({nbytes / 1e6:.1f} MB at 3.35 TB/s): K2 at "
+                      f"{100 * bound_ms / ms:.1f}% of it, the torch-op step "
+                      f"at {100 * bound_ms / plain_ms:.1f}%")
+                results[label] = {"ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": bound_ms, "err_f64": err,
+                                  "plain_err_f64": plain_err}
+    finally:
+        tst.uses_k2 = k2
+    check(note_step_cuda.launches > 0, "(c2) K2 launched (its eager steps)")
+    return results
+
+
+class PathLaunches:
+    """The VQT kernel's launch count as the phases zero and read it
+    (``launches``), with K2's beside it: zeroing the one zeroes the other,
+    so that ``k2`` reads K2's launches over the same path (4 a step, 1 a
+    bar, graph replays included: ``ops/note_step_cuda.py``)."""
+
+    def __init__(self, vqt, k2):
+        self._vqt, self._k2 = vqt, k2
+
+    @property
+    def launches(self):
+        return self._vqt.launches
+
+    @launches.setter
+    def launches(self, n):
+        self._vqt.launches = n
+        self._k2.launches = 0
+
+    @property
+    def k2(self):
+        return self._k2.launches
+
+
+# The paths that decode greedily in float32 on the card, and so run K2, and
+# the bf16 one, which must not.
+K2_PATHS = ("serve", "serve_mesh", "synth", "evaluate", "load_test",
+            "serve_chunked", "entry")
+NO_K2_PATHS = ("serve_bf16",)
 
 
 def vqt_bound(batch, samples, window=1120, bins=480, hop=160):
@@ -1963,12 +2147,12 @@ def phase_diagnostics(tmodels, tstep, load_transcriber, make_server, corpus,
     """(n) The three diagnostic tools on (k)'s corpus with (k3)'s weights,
     saved once into a save folder: (n1) frontend A/B, (n2) the attention
     probe, (n3) the HTTP load test, each path with its own launch count.
-    Returns the launches by path."""
+    Returns the VQT kernel's launches by path and K2's."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="diagnostics_") as tmp:
         save = save_folder_of(tmodels, tstep, state_dict,
                               os.path.join(tmp, "save"))
-        launches = {}
+        launches, k2 = {}, {}
         for name, run in (
                 ("frontend_ab", lambda: phase_frontend_ab(
                     save, corpus, os.path.join(tmp, "ab.json"), kernel)),
@@ -1978,8 +2162,9 @@ def phase_diagnostics(tmodels, tstep, load_transcriber, make_server, corpus,
                     load_transcriber, make_server, save, corpus, kernel))):
             t0 = time.monotonic()
             launches[name] = run()
+            k2[name] = kernel.k2
             print(f"(n) {name} took {time.monotonic() - t0:.1f} s")
-    return launches
+    return launches, k2
 
 
 def m_kern_folder(kern):
@@ -2671,8 +2856,10 @@ def main():
     from piano_a2s_tpu_torch.models import ModelConfig, init_state_dict
     from piano_a2s_tpu_torch.ops import _build
     from piano_a2s_tpu_torch.ops import vqt as tvqt
+    from piano_a2s_tpu_torch.ops.note_step_cuda import note_step_cuda
     from piano_a2s_tpu_torch.ops.vqt_cuda import vqt_magnitude_cuda
     from piano_a2s_tpu_torch.serve import make_server
+    counts = PathLaunches(vqt_magnitude_cuda, note_step_cuda)
 
     # (a) device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2694,7 +2881,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     max_err, err_f64, plain_err_f64, ms, plain_ms = phase_kernel_vs_plain(
-        torch, tvqt, lambda: vqt_magnitude_cuda.launches)
+        torch, tvqt, lambda: counts.launches)
+
+    # (c2) K2, the note-decoder step kernel
+    k2_results = phase_note_step(torch, tmodels)
 
     # (d) full width, GPU vs CPU
     cfg = ModelConfig()
@@ -2711,31 +2901,32 @@ def main():
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
 
     # The serving path, (e) + (f), with the launch counts zeroed first.
-    vqt_magnitude_cuda.launches = 0
+    counts.launches = 0
     t0 = time.monotonic()
     results = gpu.transcribe_batch(clips)
     e_seconds = time.monotonic() - t0
     check_results(results, cfg, "(e)")
-    after_batch = vqt_magnitude_cuda.launches
+    after_batch = counts.launches
     print(f"(e) transcribe_batch of {N_CLIPS} x 12 s clips: {e_seconds:.3f} "
           f"s, {N_CLIPS / e_seconds:.2f} clips/s; vqt kernel launches "
           f"{after_batch}")
     check(after_batch > 0, "the batch went through the vqt kernel")
     phase_server(make_server, gpu)
-    after_server = vqt_magnitude_cuda.launches
+    after_server = counts.launches
     print(f"(f) vqt kernel launches over (e) and (f): {after_server}")
     check(after_server > after_batch, "the server went through the vqt "
           "kernel")
     launches = {"serve": after_server}
+    k2 = {"serve": counts.k2}
     del gpu
 
     # (g) training; (g2) is the training path, with the counts zeroed first.
     phase_train_f64(torch, tmodels, tstep, tlayers)
     gc.collect()  # (g2)'s and (i2)'s peaks start from what is still live
-    vqt_magnitude_cuda.launches = 0
+    counts.launches = 0
     _, f32_peak = phase_train_full(torch, tmodels, tstep, tvqt,
-                                   lambda: vqt_magnitude_cuda.launches)
-    launches["train"] = vqt_magnitude_cuda.launches
+                                   lambda: counts.launches)
+    launches["train"], k2["train"] = counts.launches, counts.k2
     print(f"(g2) vqt kernel launches over (g2): {launches['train']}")
     check(launches["train"] == TRAIN_STEPS + 2,
           "the training path went through the vqt kernel")
@@ -2743,9 +2934,9 @@ def main():
     seconds_a_to_g = t_h - t_main
 
     # (h) the training harness, with its own launch count.
-    vqt_magnitude_cuda.launches = 0
+    counts.launches = 0
     expected = phase_trainer(torch)
-    launches["trainer"] = vqt_magnitude_cuda.launches
+    launches["trainer"], k2["trainer"] = counts.launches, counts.k2
     print(f"(h) vqt kernel launches over (h): {launches['trainer']} "
           f"(expected {expected}); phases (a)-(g) took "
           f"{seconds_a_to_g:.1f} s, (h) {time.monotonic() - t_h:.1f} s")
@@ -2758,14 +2949,15 @@ def main():
     t_i = time.monotonic()
     launches["serve_bf16"] = phase_serve_bf16(
         torch, tvqt, Transcriber, make_server, state_dict, cfg, clips,
-        e_seconds, vqt_magnitude_cuda)
+        e_seconds, counts)
+    k2["serve_bf16"] = counts.k2
     print(f"(i1) vqt kernel launches over the bf16 serving path: "
           f"{launches['serve_bf16']}")
     gc.collect()
-    vqt_magnitude_cuda.launches = 0
+    counts.launches = 0
     phase_train_bf16(torch, tmodels, tstep, tvqt,
-                     lambda: vqt_magnitude_cuda.launches, f32_peak)
-    launches["train_bf16"] = vqt_magnitude_cuda.launches
+                     lambda: counts.launches, f32_peak)
+    launches["train_bf16"], k2["train_bf16"] = counts.launches, counts.k2
     print(f"(i2) vqt kernel launches over (i2): {launches['train_bf16']}; "
           f"(i) took {time.monotonic() - t_i:.1f} s")
     check(launches["train_bf16"] == BF16_TRAIN_STEPS,
@@ -2776,10 +2968,12 @@ def main():
     t_j = time.monotonic()
     launches["serve_mesh"] = phase_serve_mesh(
         torch, Transcriber, state_dict, cfg, clips, results,
-        vqt_magnitude_cuda)
+        counts)
+    k2["serve_mesh"] = counts.k2
     gc.collect()
     launches["train_dp"] = phase_train_dp(torch, tmodels, tstep, tvqt,
-                                          vqt_magnitude_cuda)
+                                          counts)
+    k2["train_dp"] = counts.k2
     print(f"(j2) vqt kernel launches over (j2): {launches['train_dp']}; "
           f"(j) took {time.monotonic() - t_j:.1f} s")
 
@@ -2793,16 +2987,20 @@ def main():
         t_k = time.monotonic()
         launches["synth"], memorized_state = phase_synth(
             torch, tmodels, tstep, tvqt, Transcriber, state_dict,
-            vqt_magnitude_cuda, corpus)
+            counts, corpus)
+        k2["synth"] = counts.k2
         print(f"(k) took {time.monotonic() - t_k:.1f} s")
         t_l = time.monotonic()
         launches["evaluate"] = phase_evaluate(torch, corpus, memorized_state,
-                                              vqt_magnitude_cuda)
+                                              counts)
+        k2["evaluate"] = counts.k2
         print(f"(l) took {time.monotonic() - t_l:.1f} s")
         t_n = time.monotonic()
-        launches.update(phase_diagnostics(
+        by_path, k2_by_path = phase_diagnostics(
             tmodels, tstep, load_transcriber, make_server, corpus,
-            memorized_state, vqt_magnitude_cuda))
+            memorized_state, counts)
+        launches.update(by_path)
+        k2.update(k2_by_path)
         print(f"(n) took {time.monotonic() - t_n:.1f} s")
 
         # (o) the port's last gaps: (o1) the stop groups, the path
@@ -2814,7 +3012,8 @@ def main():
                            for f in sorted(os.listdir(audio_dir))]
         launches["serve_chunked"] = phase_stop_groups(
             torch, Transcriber, memorized_state, ModelConfig(),
-            memorized_audio, vqt_magnitude_cuda)
+            memorized_audio, counts)
+        k2["serve_chunked"] = counts.k2
         print(f"(o1) took {time.monotonic() - t_o:.1f} s")
         t_o2 = time.monotonic()
         with tempfile.TemporaryDirectory(prefix="export_") as tmp:
@@ -2826,7 +3025,9 @@ def main():
     # microbatches do not split over the ranks, its ranks' launches added
     # to the data-parallel path's.
     t_o3 = time.monotonic()
+    counts.launches = 0
     phase_entry(torch, Transcriber, tmodels)
+    k2["entry"] = counts.k2
     print(f"(o3) took {time.monotonic() - t_o3:.1f} s")
     gc.collect()
     t_o4 = time.monotonic()
@@ -2841,7 +3042,8 @@ def main():
     # counts just before it.
     gc.collect()
     t_m = time.monotonic()
-    launches["prepare"] = phase_prepare(torch, tvqt, vqt_magnitude_cuda)
+    launches["prepare"] = phase_prepare(torch, tvqt, counts)
+    k2["prepare"] = counts.k2
     print(f"(m) took {time.monotonic() - t_m:.1f} s")
     check("jax" not in sys.modules, "no jax imported")
     check(not any(m == "piano_a2s_tpu" or m.startswith("piano_a2s_tpu.")
@@ -2849,6 +3051,12 @@ def main():
 
     check(len(launches) == 14 and min(launches.values()) > 0,
           f"every one of the 14 paths launched the vqt kernel: {launches}")
+    print(f"K2 launches by path, each counted from zero (4 a step, 1 a "
+          f"bar): {k2}")
+    check(all(k2[p] > 0 for p in K2_PATHS),
+          f"the float32 greedy paths ran K2: {k2}")
+    check(all(k2[p] == 0 for p in NO_K2_PATHS),
+          f"the bf16 serving path ran no K2: {k2}")
     bound_ms, bound_by = vqt_bound(N_CLIPS, CLIP_SAMPLES)
     print(f"chip_smoke: every phase passed in {time.monotonic() - t_main:.1f}"
           f" s")
@@ -2862,7 +3070,17 @@ def main():
         "launches": sum(launches.values()), "launches_by_path": launches,
         "max_abs_err": max_err, "err_f64": err_f64,
         "plain_err_f64": plain_err_f64, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}))
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
+        "name": "note_step", "route": "cuda",
+        "source": "piano_a2s_tpu_torch/csrc/note_step.cu",
+        "replaces": "piano_a2s_tpu/models/score_transcription.py:561 "
+                    "(the XLA while_loop step; no Pallas kernel)",
+        "design": "4 launches a step: one pass over enc and enc_proj2 with "
+                  "split-T online softmax, the GRU, the head with the next "
+                  "query, the argmax and masked updates",
+        "launches": sum(k2.values()), "launches_by_path": k2,
+        "by_case": k2_results,
+        "bound_by": "bytes", "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

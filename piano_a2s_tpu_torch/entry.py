@@ -54,8 +54,10 @@ def entry(device="cuda", cfg: ModelConfig = None):
     return fn, (model, spec)
 
 
-# The dry run's model and batch: __graft_entry__.py's tiny shapes.
-DRYRUN_CFG = ModelConfig(freq_bins=16, conv_feature_size=32, hidden_size=16,
+# The dry run's model and batch: __graft_entry__.py's tiny shapes, but the
+# paper's hidden size (256): on a card the float32 eval step decodes
+# greedily through K2, which is built for those widths alone.
+DRYRUN_CFG = ModelConfig(freq_bins=16, conv_feature_size=32, hidden_size=256,
                          max_bars=2, max_length=(8, 6), note_emb_size=8,
                          staff_emb_size=8)
 DRYRUN_FRAMES, DRYRUN_AUDIO_FRAMES = 24, 16
@@ -158,12 +160,13 @@ def _dryrun_rank(rank: int, world: int, init_file: str,
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     """Run the data-parallel training step over ``n_devices`` gloo ranks,
-    one process each, at tiny shapes (batch 2 n, accum_steps=2): float32
-    train and eval steps, the bf16 ConvStack on uint8-staged spectrograms,
-    int16 audio through the VQT frontend (the VQT kernel on the card) and
-    guided attention. ``device`` "cuda" puts rank r on card r modulo the
-    cards there are (raises without one); "cpu" runs every rank on the
-    CPU. Raises if a rank fails."""
+    one process each, at tiny shapes and the paper's hidden size (batch
+    2 n, accum_steps=2): float32 train and eval steps (the eval step's
+    greedy decode through K2 on the card), the bf16 ConvStack on
+    uint8-staged spectrograms, int16 audio through the VQT frontend (the
+    VQT kernel on the card) and guided attention. ``device`` "cuda" puts
+    rank r on card r modulo the cards there are (raises without one);
+    "cpu" runs every rank on the CPU. Raises if a rank fails."""
     resolve_device(device)
     tmp = tempfile.mkdtemp(prefix="dryrun_")
     try:

@@ -46,6 +46,8 @@ import torch.nn.functional as F
 from ..ops import attention as A
 from ..ops import gru as G
 from ..ops import layers as L
+from ..ops import note_step_cuda as K2
+from ..ops.note_step import step_mask
 from ..utils import profiling as P
 
 CONV_CHANNELS = (20, 20, 40, 40)
@@ -304,27 +306,90 @@ def _fast_step(p: DualDecodeParams, enc: torch.Tensor,
     return h2_new, logp2, logp2.argmax(dim=-1)
 
 
+def uses_k2(enc: torch.Tensor) -> bool:
+    """Whether a greedy note step of these operands runs K2, the
+    hand-written step kernel (``ops/note_step_cuda.py``): float32 operands
+    on a card. Every other step runs as torch ops around ``_fast_step``:
+    the CPU's, and on a card the bf16 decode's (until a bf16 kernel exists)
+    and float64's. Decided by the tensor's device and dtype alone: a
+    float32 decode on a card at widths K2 is not built for raises in its
+    wrapper rather than fall back."""
+    return enc.is_cuda and enc.dtype == torch.float32
+
+
+class _DecodeState:
+    """A greedy note decode's state, which each step updates in place: the
+    hidden states ``h2`` (2, B, 2H), the projected last tokens ``tok2``
+    (2, B, 3*2H), ``lengths`` and ``done`` (2, B), the steps run ``t`` (a
+    0-dim tensor), the staves' ``caps`` (2, 1), the stop ``groups`` and,
+    where the steps run K2 (``uses_k2``), its scratch ``work``."""
+
+    def __init__(self, p: DualDecodeParams, cfg: ModelConfig,
+                 enc: torch.Tensor, chunk: Optional[int]):
+        B, dev = enc.shape[0], enc.device
+        self.groups = B // chunk if chunk else 1
+        self.caps = torch.tensor(cfg.max_length, device=dev)[:, None]
+        self.h2 = torch.empty((2, B, p.w_hq.shape[1]), dtype=enc.dtype,
+                              device=dev)
+        self.tok2 = torch.empty((2, B, p.emb_proj.shape[-1]),
+                                dtype=p.emb_proj.dtype, device=dev)
+        self.lengths = torch.empty((2, B), dtype=torch.long, device=dev)
+        self.done = torch.empty((2, B), dtype=torch.bool, device=dev)
+        self.t = torch.empty((), dtype=torch.long, device=dev)
+        self.work = (K2.NoteStepWork(p, B, enc.shape[1], self.groups, dev)
+                     if uses_k2(enc) else None)
+
+    def bind(self, p: DualDecodeParams) -> "_DecodeState":
+        """Take a forward's weights (K2 pads the head's)."""
+        if self.work is not None:
+            self.work.bind(p)
+        return self
+
+    def reset(self, p: DualDecodeParams, h0: torch.Tensor,
+              tok0: torch.Tensor) -> None:
+        """A bar's start from the bar summary ``h0`` (B, 2H) and the
+        projected <sos> ``tok0``; K2 computes the first step's query."""
+        self.h2.copy_(h0.expand_as(self.h2))
+        self.tok2.copy_(tok0)
+        self.lengths.copy_(self.caps.expand_as(self.lengths))
+        self.done.zero_()
+        self.t.zero_()
+        if self.work is not None:
+            K2.note_step_prologue(p, self.work, self.h2)
+
+
 def _masked_step(p: DualDecodeParams, cfg: ModelConfig, enc: torch.Tensor,
-                 enc_proj2: torch.Tensor, m: torch.Tensor, t1,
-                 h2: torch.Tensor, tok2: torch.Tensor,
-                 lengths: torch.Tensor, done: torch.Tensor):
-    """One greedy step of both staves (``_fast_step``, looked up on the
-    module at each call) kept only in the rows of the (staff, group) pairs
-    still decoding, ``m`` (2, B) bool: elsewhere the state stays and the
-    step's log-probs and tokens are zero. ``t1`` is the step's index plus
-    one (an int, or a 0-dim tensor on the device), the length of a row
-    that emits EOS here. Returns (h2, logp (2, B, V), pred (2, B),
-    lengths, done, tok2)."""
-    h2_new, logp2, pred2 = _fast_step(p, enc, enc_proj2, h2, tok2)
+                 enc_proj2: torch.Tensor, st: _DecodeState,
+                 logp: torch.Tensor, pred: torch.Tensor,
+                 live: Optional[torch.Tensor] = None) -> None:
+    """One greedy step of both staves in place on the decode state ``st``,
+    kept only in the rows of the (staff, group) pairs still decoding: those
+    under their staff's cap whose group is ``live`` ((2, groups) bool; by
+    default, some row of the group has not emitted EOS). Elsewhere the
+    state stays, and the step's log-probs and tokens, written into ``logp``
+    (2, B, V) and ``pred`` (2, B), are zero. ``st.t`` counts the step; a
+    row that emits EOS here gets it (the step's index plus one) as its
+    length.
+
+    CUDA float32 operands (``uses_k2``) run K2, which reads none of an
+    inactive pair's operands; every other step runs the torch ops below
+    around ``_fast_step`` (looked up on the module at each call)."""
+    if uses_k2(enc):
+        K2.note_step_cuda(p, st.work, enc, enc_proj2, st.h2, st.tok2,
+                          st.lengths, st.done, st.t, st.caps, logp, pred,
+                          cfg.eos, live)
+        return
+    m = step_mask(st.done, st.t, st.caps, st.groups, live)
+    st.t += 1
+    h2_new, logp2, pred2 = _fast_step(p, enc, enc_proj2, st.h2, st.tok2)
     m3 = m[:, :, None]
-    h2 = torch.where(m3, h2_new, h2)
-    logp = torch.where(m3, logp2, 0.0)
-    pred = torch.where(m, pred2, 0)
+    st.h2.copy_(torch.where(m3, h2_new, st.h2))
+    logp.copy_(torch.where(m3, logp2, 0.0))
+    pred.copy_(torch.where(m, pred2, 0))
     is_eos = (pred2 == cfg.eos) & m
-    lengths = torch.where(is_eos, t1, lengths)
-    done = done | is_eos
-    tok2 = torch.where(m3, _tok_proj(p, pred2), tok2)
-    return h2, logp, pred, lengths, done, tok2
+    st.lengths.copy_(torch.where(is_eos, st.t, st.lengths))
+    st.done |= is_eos
+    st.tok2.copy_(torch.where(m3, _tok_proj(p, pred2), st.tok2))
 
 
 def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
@@ -363,25 +428,25 @@ def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
     B, dev = enc.shape[0], enc.device
     caps = tuple(cfg.max_length)
     T = max(caps)
-    n_groups = B // chunk if chunk else 1
+    st = _DecodeState(p, cfg, enc, chunk).bind(p)
+    if st.work is not None:
+        enc = enc.contiguous()  # K2 reads whole frames
+    n_groups = st.groups
     logps = torch.zeros((T, 2, B, cfg.vocab_size),
                         dtype=L.float32_or_wider(enc.dtype), device=dev)
     preds = torch.zeros((T, 2, B), dtype=torch.long, device=dev)
-    done = torch.zeros((2, B), dtype=torch.bool, device=dev)
-    lengths = torch.tensor(caps, device=dev)[:, None].repeat(1, B)
-    h2 = torch.stack([h0, h0])
-    tok2 = _tok_proj(p, torch.full((2, B), cfg.sos, dtype=torch.long,
-                                   device=dev))
-    masks = {}
+    st.reset(p, h0, _tok_proj(p, torch.full((2, B), cfg.sos,
+                                            dtype=torch.long, device=dev)))
+    lives = {}
     on = P.active()
     steps = read_ns = active_groups = 0
     for t in range(T):
         if on:
             t0 = time.perf_counter_ns()
         if group is None:
-            group_done = done.reshape(2, n_groups, -1).all(dim=2).tolist()
+            group_done = st.done.reshape(2, n_groups, -1).all(dim=2).tolist()
         else:
-            left = (~done).sum(dim=1)
+            left = (~st.done).sum(dim=1)
             dist.all_reduce(left, group=group)
             group_done = (left == 0)[:, None].tolist()
         if on:
@@ -393,18 +458,17 @@ def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
         if on:
             steps += 1
             active_groups += sum(map(sum, act))
-        if act not in masks:
-            masks[act] = torch.tensor(act, device=dev).repeat_interleave(
-                B // n_groups, dim=1)                            # (2, B)
-        h2, logps[t], preds[t], lengths, done, tok2 = _masked_step(
-            p, cfg, enc, enc_proj2, masks[act], t + 1, h2, tok2, lengths,
-            done)
+        key = tuple(map(tuple, group_done))
+        if key not in lives:
+            lives[key] = ~torch.tensor(key, device=dev)      # (2, groups)
+        _masked_step(p, cfg, enc, enc_proj2, st, logps[t], preds[t],
+                     lives[key])
     if on:
         P.count("note_steps", steps)
         P.count("stop_read_ns", read_ns)
         P.count("rows_computed", 2 * B * steps)
         P.count("rows_active", B // n_groups * active_groups)
-    return _per_staff(logps, preds, lengths, caps)
+    return _per_staff(logps, preds, st.lengths, caps)
 
 
 def _per_staff(logps, preds, lengths, caps) -> tuple:
@@ -454,11 +518,12 @@ class _NoteGraph:
     forward copies its enc, projections and weights in (``bind``), each
     bar its bar summary (``decode``), and the host copies each replay's
     log-probs and tokens out into the call's own tensors. A replay runs
-    ``k`` steps of ``_masked_step``, the eager loop's, with the mask made
-    on the card from the done flags and a step counter (t < each staff's
-    cap); a step after every pair has stopped changes nothing, so the
-    outputs are the eager loop's. The host reads the (2, groups) stop
-    flags with one ``.tolist()`` a replay.
+    ``k`` steps of ``_masked_step``, the eager loop's, in place on the
+    static decode state, the mask made on the card from the done flags and
+    the step counter (t < each staff's cap); a step after every pair has
+    stopped changes nothing, so the outputs are the eager loop's. The host
+    reads the (2, groups) stop flags with one ``.tolist()`` a replay.
+    CUDA float32 steps are K2's launches (``uses_k2``).
 
     Without ``capture()`` (the CPU tests) ``decode`` runs the same blocks
     eagerly. One decode at a time per instance: the buffers are shared.
@@ -474,31 +539,27 @@ class _NoteGraph:
                  chunk: Optional[int], k: int):
         B, dev = enc.shape[0], enc.device
         self.cfg, self.k, self.graph = cfg, k, None
-        self.groups = B // chunk if chunk else 1
         # Plain tensors even under inference_mode, so that a later call
         # under no_grad can copy into them.
         with torch.inference_mode(False):
             self.p = DualDecodeParams(**{
                 f.name: torch.empty_like(getattr(p, f.name))
                 for f in dataclasses.fields(DualDecodeParams)})
-            self.enc = torch.empty_like(enc)
-            self.enc_proj2 = torch.empty_like(enc_proj2)
-            self.caps = torch.tensor(cfg.max_length, device=dev)[:, None]
+            # Contiguous whatever the operands' strides (K2 reads whole
+            # frames), so that bind's copy is the only one.
+            self.enc = torch.empty(enc.shape, dtype=enc.dtype, device=dev)
+            self.enc_proj2 = torch.empty(enc_proj2.shape,
+                                         dtype=enc_proj2.dtype, device=dev)
+            self.st = _DecodeState(p, cfg, enc, chunk)
             self.sos = torch.full((2, B), cfg.sos, dtype=torch.long,
                                   device=dev)
             self.tok0 = torch.empty((2, B, p.emb_proj.shape[-1]),
                                     dtype=p.emb_proj.dtype, device=dev)
-            self.tok2 = torch.empty_like(self.tok0)
-            self.h2 = torch.empty((2, B, p.w_hq.shape[1]),
-                                  dtype=enc.dtype, device=dev)
-            self.lengths = torch.empty((2, B), dtype=torch.long, device=dev)
-            self.done = torch.empty((2, B), dtype=torch.bool, device=dev)
-            self.t = torch.empty((), dtype=torch.long, device=dev)
             self.logp = torch.empty((k, 2, B, cfg.vocab_size),
                                     dtype=L.float32_or_wider(enc.dtype),
                                     device=dev)
             self.pred = torch.empty((k, 2, B), dtype=torch.long, device=dev)
-            self.stopped = torch.empty((2, self.groups), dtype=torch.bool,
+            self.stopped = torch.empty((2, self.st.groups), dtype=torch.bool,
                                        device=dev)
 
     def bind(self, p: DualDecodeParams, enc: torch.Tensor,
@@ -509,42 +570,26 @@ class _NoteGraph:
         self.enc.copy_(enc)
         self.enc_proj2.copy_(enc_proj2)
         self.tok0.copy_(_tok_proj(self.p, self.sos))
+        self.st.bind(self.p)
         return self
 
     def _reset(self, h0: torch.Tensor) -> None:
-        self.h2.copy_(h0.expand_as(self.h2))
-        self.tok2.copy_(self.tok0)
-        self.lengths.copy_(self.caps.expand_as(self.lengths))
-        self.done.zero_()
-        self.t.zero_()
+        self.st.reset(self.p, h0, self.tok0)
 
     def _block(self) -> None:
         """``k`` masked steps from the static state (the graph's body)."""
-        p, cfg, g = self.p, self.cfg, self.groups
-        B = self.done.shape[1]
-        h2, tok2, lengths, done, t = (self.h2, self.tok2, self.lengths,
-                                      self.done, self.t)
         for i in range(self.k):
-            live = (~done).reshape(2, g, -1).any(dim=2, keepdim=True)
-            m = (live & (t < self.caps)[:, :, None]).expand(
-                2, g, B // g).reshape(2, B)
-            t = t + 1
-            h2, self.logp[i], self.pred[i], lengths, done, tok2 = \
-                _masked_step(p, cfg, self.enc, self.enc_proj2, m, t, h2,
-                             tok2, lengths, done)
-        self.h2.copy_(h2)
-        self.tok2.copy_(tok2)
-        self.lengths.copy_(lengths)
-        self.done.copy_(done)
-        self.t.copy_(t)
-        torch.all(done.reshape(2, g, -1), dim=2, out=self.stopped)
+            _masked_step(self.p, self.cfg, self.enc, self.enc_proj2, self.st,
+                         self.logp[i], self.pred[i])
+        torch.all(self.st.done.reshape(2, self.st.groups, -1), dim=2,
+                  out=self.stopped)
 
     def capture(self) -> "_NoteGraph":
         """Warm the block up eagerly (twice) on a side stream, then capture it
         (``thread_local``: other threads may use the card meanwhile, as the
         server's and the mesh's do)."""
         dev = self.enc.device
-        self._reset(torch.zeros_like(self.h2[0]))
+        self._reset(torch.zeros_like(self.st.h2[0]))
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
@@ -556,7 +601,15 @@ class _NoteGraph:
                 graph, stream=stream, capture_error_mode="thread_local"):
             self._block()
         self.graph = graph
+        self.k2_launches = (self.k * K2.STEP_LAUNCHES
+                            if self.st.work is not None else 0)
         return self
+
+    def _replay(self) -> None:
+        """A replay, its K2 kernels counted in K2's launches (the capture
+        counted none)."""
+        self.graph.replay()
+        K2.count_launches(self.k2_launches)
 
     def decode(self, h0: torch.Tensor):
         """One bar from the bar summary ``h0`` (B, 2H); returns what
@@ -565,7 +618,7 @@ class _NoteGraph:
         caps = tuple(cfg.max_length)
         T = max(caps)
         B, dev = h0.shape[0], h0.device
-        run = self._block if self.graph is None else self.graph.replay
+        run = self._block if self.graph is None else self._replay
         self._reset(h0)
         logps = torch.zeros((T,) + self.logp.shape[1:], dtype=self.logp.dtype,
                             device=dev)
@@ -588,9 +641,9 @@ class _NoteGraph:
             if not any(t < caps[s] and not d
                        for s in range(2) for d in stopped[s]):
                 break
-        lengths = self.lengths.clone()
+        lengths = self.st.lengths.clone()
         if on:
-            g = self.groups
+            g = self.st.groups
             active = sum(int(_stop_step(
                 (preds[:cap, s] == cfg.eos).T.reshape(g, B // g, cap)).sum())
                 for s, cap in enumerate(caps))
