@@ -2,8 +2,8 @@
 // the masked updates of the decode's state.
 //
 // Replaces no Pallas kernel: the JAX package runs this step inside the XLA
-// while_loop of piano_a2s_tpu/models/score_transcription.py:561
-// (note_decoder_dual_infer), and the port ran it as about 47 torch ops
+// while_loop of its greedy note decode (piano_a2s_tpu/models/
+// score_transcription.py:561), and the port ran it as about 47 torch ops
 // (models/score_transcription.py::_fast_step under _masked_step). For staff
 // s and row b, where the (staff, stop group) pair is active:
 //

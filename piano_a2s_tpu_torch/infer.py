@@ -52,6 +52,10 @@ class Transcriber:
     matmuls reduce in float32 (the process-wide flags are set here): the
     JAX package is the reference. Every tensor is created on
     ``self.device`` explicitly, so the server's worker thread can call in.
+    On a card one Transcriber serves one thread at a time: its model's
+    captured note decode (``models/score_transcription.py::_NoteDecode``)
+    keeps one set of buffers per shape, which a second thread's call would
+    overwrite. On the CPU calls from several threads are safe.
 
     ``decode_dtype`` None decodes in float32; torch.bfloat16 runs the
     ConvStack and the note decoders' loop in bfloat16, the softmaxes and

@@ -10,8 +10,9 @@ Port of piano_a2s_tpu/models/score_transcription.py:
          hidden (B, 512)
       -> HierarchicalDecoder: per bar, a GRU step with additive attention
          gives the bar summary; two note decoders (upper and lower staff)
-         decode greedily or, given ground truth, teacher-forced; MLP heads
-         give time and key signature.
+         decode greedily (one loop, ``_NoteDecode``: replayed CUDA graphs
+         on a card, single steps elsewhere) or, given ground truth,
+         teacher-forced; MLP heads give time and key signature.
 
 Parameter names are those of the torch reference state dict (the keys
 ``piano_a2s_tpu.models.convert.to_torch_state_dict`` emits), so a converted
@@ -25,10 +26,10 @@ forward takes the global batch's BatchNorm statistics, draws its dropout
 masks at the global batch's shape and keeps its rows, and takes the
 decode's batch-coupled
 stop step over every rank's targets; the greedy decode stops when every
-rank's items have stopped. So N ranks compute what one rank computes on
-the joined rows, as the JAX package's one program over a device mesh
-does. Serving shards (infer.Transcriber(use_mesh=True)) pass no group:
-each stops on its own.
+rank's items have stopped (an all-reduce after each step). So N ranks
+compute what one rank computes on the joined rows, as the JAX package's
+one program over a device mesh does. Serving shards
+(infer.Transcriber(use_mesh=True)) pass no group: each stops on its own.
 """
 
 from __future__ import annotations
@@ -362,14 +363,15 @@ def _masked_step(p: DualDecodeParams, cfg: ModelConfig, enc: torch.Tensor,
                  enc_proj2: torch.Tensor, st: _DecodeState,
                  logp: torch.Tensor, pred: torch.Tensor,
                  live: Optional[torch.Tensor] = None) -> None:
-    """One greedy step of both staves in place on the decode state ``st``,
-    kept only in the rows of the (staff, group) pairs still decoding: those
-    under their staff's cap whose group is ``live`` ((2, groups) bool; by
-    default, some row of the group has not emitted EOS). Elsewhere the
-    state stays, and the step's log-probs and tokens, written into ``logp``
-    (2, B, V) and ``pred`` (2, B), are zero. ``st.t`` counts the step; a
-    row that emits EOS here gets it (the step's index plus one) as its
-    length.
+    """One greedy step of both staves in place on the decode state ``st``
+    (the step ``_NoteDecode`` runs), kept only in the rows of the (staff,
+    group) pairs still decoding: those under their staff's cap whose group
+    is ``live`` ((2, groups) bool, the all-reduced flag under a
+    data-parallel group; by default, some row of the group has not emitted
+    EOS). Elsewhere the state stays, and the step's log-probs and tokens,
+    written into ``logp`` (2, B, V) and ``pred`` (2, B), are zero.
+    ``st.t`` counts the step; a row that emits EOS here gets it (the step's
+    index plus one) as its length.
 
     CUDA float32 operands (``uses_k2``) run K2, which reads none of an
     inactive pair's operands; every other step runs the torch ops below
@@ -390,85 +392,6 @@ def _masked_step(p: DualDecodeParams, cfg: ModelConfig, enc: torch.Tensor,
     st.lengths.copy_(torch.where(is_eos, st.t, st.lengths))
     st.done |= is_eos
     st.tok2.copy_(torch.where(m3, _tok_proj(p, pred2), st.tok2))
-
-
-def note_decoder_dual_infer(p: DualDecodeParams, cfg: ModelConfig,
-                            enc: torch.Tensor, enc_proj2: torch.Tensor,
-                            h0: torch.Tensor, group=None,
-                            chunk: Optional[int] = None):
-    """Greedy decode of both staves with the reference's early exit, one
-    step at a time (the eager loop; on a card, without ``group`` and
-    without gradients, ``HierarchicalDecoder.forward`` runs the same steps
-    as replayed CUDA graphs instead: ``_NoteGraph``).
-
-    Staff s steps while t < its cap and not every batch item has emitted
-    EOS; its buffers stay zero after it stops. An item's length is its
-    last EOS step + 1 (the cap if it never emitted EOS). The loop reads
-    the stop condition on the host every step. Under ``group`` (eval under
-    data parallelism) "every batch item" is every rank's: the count of
-    items still decoding is all-reduced each step, so all ranks stop at
-    the same step, as the JAX package's one loop over the global batch.
-
-    ``chunk`` (a divisor of B; ``pick_decode_chunk``; None under
-    ``group``) makes each run of ``chunk`` rows a stop group of its own: a staff's rows of one group
-    step until every item of that group has emitted EOS, and their buffers
-    stay zero after. This is the JAX package's chunked decode (one decode
-    loop per group), in one loop over the whole batch: the loop ends when
-    no group of either staff is active, the step at which the slowest
-    group stops, and the host reads a (2, groups) flag a step.
-
-    Returns per staff (logp (B, T_s, V), tokens (B, T_s), lengths (B,)).
-
-    While tracing (``utils.profiling``), the call counts on the innermost
-    open span (``decode/notes``): ``note_steps`` (steps run),
-    ``stop_read_ns`` (the host's wall in the stop reads), ``rows_computed``
-    (2 x B a step: both staves' rows are always stepped) and
-    ``rows_active`` (the rows of the (staff, group) pairs still decoding).
-    """
-    B, dev = enc.shape[0], enc.device
-    caps = tuple(cfg.max_length)
-    T = max(caps)
-    st = _DecodeState(p, cfg, enc, chunk).bind(p)
-    if st.work is not None:
-        enc = enc.contiguous()  # K2 reads whole frames
-    n_groups = st.groups
-    logps = torch.zeros((T, 2, B, cfg.vocab_size),
-                        dtype=L.float32_or_wider(enc.dtype), device=dev)
-    preds = torch.zeros((T, 2, B), dtype=torch.long, device=dev)
-    st.reset(p, h0, _tok_proj(p, torch.full((2, B), cfg.sos,
-                                            dtype=torch.long, device=dev)))
-    lives = {}
-    on = P.active()
-    steps = read_ns = active_groups = 0
-    for t in range(T):
-        if on:
-            t0 = time.perf_counter_ns()
-        if group is None:
-            group_done = st.done.reshape(2, n_groups, -1).all(dim=2).tolist()
-        else:
-            left = (~st.done).sum(dim=1)
-            dist.all_reduce(left, group=group)
-            group_done = (left == 0)[:, None].tolist()
-        if on:
-            read_ns += time.perf_counter_ns() - t0
-        act = tuple(tuple(t < caps[s] and not d for d in group_done[s])
-                    for s in range(2))
-        if not any(map(any, act)):
-            break
-        if on:
-            steps += 1
-            active_groups += sum(map(sum, act))
-        key = tuple(map(tuple, group_done))
-        if key not in lives:
-            lives[key] = ~torch.tensor(key, device=dev)      # (2, groups)
-        _masked_step(p, cfg, enc, enc_proj2, st, logps[t], preds[t],
-                     lives[key])
-    if on:
-        P.count("note_steps", steps)
-        P.count("stop_read_ns", read_ns)
-        P.count("rows_computed", 2 * B * steps)
-        P.count("rows_active", B // n_groups * active_groups)
-    return _per_staff(logps, preds, st.lengths, caps)
 
 
 def _per_staff(logps, preds, lengths, caps) -> tuple:
@@ -509,36 +432,51 @@ def _workspaces_in_pool():
         torch._C._cuda_clearCublasWorkspaces()
 
 
-class _NoteGraph:
-    """The greedy note decode of one shape (rows, stop groups, dtype,
-    device, enc's length) as a CUDA graph of ``k`` steps, replayed until
-    every (staff, group) pair has stopped.
+class _NoteDecode:
+    """The port's greedy note decode of one shape (rows, stop groups,
+    dtype, device, enc's length): blocks of ``k`` masked steps
+    (``_masked_step``) in place on a static decode state, run until every
+    (staff, group) pair has stopped.
 
-    The graph reads and writes only the static buffers made here: each
-    forward copies its enc, projections and weights in (``bind``), each
-    bar its bar summary (``decode``), and the host copies each replay's
-    log-probs and tokens out into the call's own tensors. A replay runs
-    ``k`` steps of ``_masked_step``, the eager loop's, in place on the
-    static decode state, the mask made on the card from the done flags and
-    the step counter (t < each staff's cap); a step after every pair has
-    stopped changes nothing, so the outputs are the eager loop's. The host
-    reads the (2, groups) stop flags with one ``.tolist()`` a replay.
-    CUDA float32 steps are K2's launches (``uses_k2``).
+    The steps read and write only the static buffers made here: each
+    forward copies its enc, projections and weights in (``bind``; the
+    buffers are contiguous, as K2 reads whole frames), each bar its bar
+    summary (``decode``), and the host copies each block's log-probs and
+    tokens out into the call's own tensors. A step's mask is made on the
+    card from the done flags and the step counter (t < each staff's cap),
+    and a step after every pair has stopped changes nothing, so blocks of
+    any ``k`` give what single steps give. The host reads the (2, groups)
+    stop flags once a block. CUDA float32 steps are K2's launches
+    (``uses_k2``).
 
-    Without ``capture()`` (the CPU tests) ``decode`` runs the same blocks
-    eagerly. One decode at a time per instance: the buffers are shared.
+    ``_NoteGraphs.bound`` picks one of two ways of running it from what it
+    can observe:
+    - captured (``runs_as_graph``: a card, no ``group``, no gradients):
+      k = ``GRAPH_STEPS`` and a block is one replay of a CUDA graph
+      (``capture``). The instance is kept per shape, so one decode at a
+      time per model: the buffers are shared.
+    - uncaptured (the CPU, a data-parallel ``group``, gradients on): k = 1
+      and a fresh instance per forward, so calls are reentrant. Under
+      ``group`` the stop read after each step is an all-reduce of each
+      staff's count of rows still decoding, and its result is the next
+      step's ``live``: every rank makes the same collectives and stops at
+      the same step, and a rank's finished rows step on while any rank's
+      rows decode, as in the JAX package's one loop over the global batch.
 
-    While tracing, ``decode`` counts on the innermost open span what the
-    eager loop counts (``note_steps``, the steps run past the stop too;
-    ``stop_read_ns``; ``rows_computed``; ``rows_active``, from the stop
-    steps the tokens give) and ``graph_steps``, the steps run in replays.
+    While tracing, ``decode`` counts on the innermost open span
+    ``note_steps`` (the steps run, past the stop too), ``graph_steps``
+    (those run in replays), ``stop_read_ns`` (the host's wall in the stop
+    reads), ``rows_computed`` (2 x B a step: both staves' rows are always
+    stepped) and ``rows_active`` (the rows of the (staff, group) pairs
+    still decoding, from the stop steps the tokens give; under ``group``,
+    this rank's own stop).
     """
 
     def __init__(self, p: DualDecodeParams, cfg: ModelConfig,
                  enc: torch.Tensor, enc_proj2: torch.Tensor,
-                 chunk: Optional[int], k: int):
+                 chunk: Optional[int], k: int, group=None):
         B, dev = enc.shape[0], enc.device
-        self.cfg, self.k, self.graph = cfg, k, None
+        self.cfg, self.k, self.group, self.graph = cfg, k, group, None
         # Plain tensors even under inference_mode, so that a later call
         # under no_grad can copy into them.
         with torch.inference_mode(False):
@@ -563,7 +501,7 @@ class _NoteGraph:
                                        device=dev)
 
     def bind(self, p: DualDecodeParams, enc: torch.Tensor,
-             enc_proj2: torch.Tensor) -> "_NoteGraph":
+             enc_proj2: torch.Tensor) -> "_NoteDecode":
         """Copy one forward's operands into the static buffers."""
         for f in dataclasses.fields(DualDecodeParams):
             getattr(self.p, f.name).copy_(getattr(p, f.name))
@@ -576,15 +514,15 @@ class _NoteGraph:
     def _reset(self, h0: torch.Tensor) -> None:
         self.st.reset(self.p, h0, self.tok0)
 
-    def _block(self) -> None:
+    def _block(self, live: Optional[torch.Tensor] = None) -> None:
         """``k`` masked steps from the static state (the graph's body)."""
         for i in range(self.k):
             _masked_step(self.p, self.cfg, self.enc, self.enc_proj2, self.st,
-                         self.logp[i], self.pred[i])
+                         self.logp[i], self.pred[i], live)
         torch.all(self.st.done.reshape(2, self.st.groups, -1), dim=2,
                   out=self.stopped)
 
-    def capture(self) -> "_NoteGraph":
+    def capture(self) -> "_NoteDecode":
         """Warm the block up eagerly (twice) on a side stream, then capture it
         (``thread_local``: other threads may use the card meanwhile, as the
         server's and the mesh's do)."""
@@ -612,21 +550,30 @@ class _NoteGraph:
         K2.count_launches(self.k2_launches)
 
     def decode(self, h0: torch.Tensor):
-        """One bar from the bar summary ``h0`` (B, 2H); returns what
-        ``note_decoder_dual_infer`` returns."""
+        """One bar from the bar summary ``h0`` (B, 2H). A staff's rows of
+        one stop group (``chunk`` rows, ``pick_decode_chunk``; the JAX
+        package's chunked decode, here in one loop over the batch) step
+        while t < the staff's cap and some item of the group has not
+        emitted EOS; their buffers stay zero after. An item's length is its
+        last EOS step + 1 (the cap if it never emitted EOS). Returns per
+        staff (logp (B, T_s, V), tokens (B, T_s), lengths (B,))."""
         cfg, k = self.cfg, self.k
         caps = tuple(cfg.max_length)
         T = max(caps)
         B, dev = h0.shape[0], h0.device
-        run = self._block if self.graph is None else self._replay
         self._reset(h0)
         logps = torch.zeros((T,) + self.logp.shape[1:], dtype=self.logp.dtype,
                             device=dev)
         preds = torch.zeros((T, 2, B), dtype=torch.long, device=dev)
+        live = (None if self.group is None
+                else torch.ones((2, 1), dtype=torch.bool, device=dev))
         on = P.active()
         t = read_ns = 0
         while t < T:
-            run()
+            if self.graph is None:
+                self._block(live)
+            else:
+                self._replay()
             n = min(k, T - t)
             logps[t:t + n] = self.logp[:n]
             preds[t:t + n] = self.pred[:n]
@@ -635,7 +582,13 @@ class _NoteGraph:
                 break
             if on:
                 t0 = time.perf_counter_ns()
-            stopped = self.stopped.tolist()
+            if self.group is None:
+                stopped = self.stopped.tolist()
+            else:
+                left = (~self.st.done).sum(dim=1)
+                dist.all_reduce(left, group=self.group)
+                live = (left > 0)[:, None]
+                stopped = (left == 0)[:, None].tolist()
             if on:
                 read_ns += time.perf_counter_ns() - t0
             if not any(t < caps[s] and not d
@@ -657,9 +610,10 @@ class _NoteGraph:
 
 
 def runs_as_graph(enc: torch.Tensor, group=None) -> bool:
-    """Whether a greedy forward of ``enc`` runs its note decoders as
-    replayed CUDA graphs: on a card, without a data-parallel ``group``
-    (whose stop read is an all-reduce a step) and without gradients."""
+    """Whether a greedy forward of ``enc`` runs its note decode captured,
+    as replayed CUDA graphs: on a card, without a data-parallel ``group``
+    (whose stop read is an all-reduce after every step) and without
+    gradients. Elsewhere it runs uncaptured single steps (``_NoteDecode``)."""
     return enc.is_cuda and group is None and not torch.is_grad_enabled()
 
 
@@ -675,20 +629,25 @@ class _GraphCache:
 
 
 class _NoteGraphs(_GraphCache):
-    """One decoder's ``_NoteGraph``s, captured once per shape (rows, stop
+    """One decoder's captured ``_NoteDecode``s, one per shape (rows, stop
     groups, dtype, device, enc's length, K)."""
 
     def bound(self, p: DualDecodeParams, cfg: ModelConfig,
               enc: torch.Tensor, enc_proj2: torch.Tensor,
-              chunk: Optional[int]) -> _NoteGraph:
-        """The graph of this shape, captured at its first use, holding
-        this forward's operands."""
+              chunk: Optional[int], group=None) -> _NoteDecode:
+        """A forward's note decode, holding its operands: where
+        ``runs_as_graph``, the captured one of this shape (captured at its
+        first use and kept); elsewhere a fresh uncaptured one of single
+        steps, kept by no one."""
+        if not runs_as_graph(enc, group):
+            return _NoteDecode(p, cfg, enc, enc_proj2, chunk, 1, group).bind(
+                p, enc, enc_proj2)
         key = (enc.shape[0], enc.shape[0] // chunk if chunk else 1,
                enc.dtype, enc.device, enc.shape[1], GRAPH_STEPS)
         graph = self._by_shape.get(key)
         if graph is not None:
             return graph.bind(p, enc, enc_proj2)
-        graph = _NoteGraph(p, cfg, enc, enc_proj2, chunk, GRAPH_STEPS).bind(
+        graph = _NoteDecode(p, cfg, enc, enc_proj2, chunk, GRAPH_STEPS).bind(
             p, enc, enc_proj2).capture()
         self._by_shape[key] = graph
         return graph
@@ -1349,16 +1308,16 @@ class HierarchicalDecoder(nn.Module):
         log-softmaxes, and the emitted log-probs, stay float32. The bar
         level (attention, GRU, heads, staff summaries) stays float32.
         ``group``: the note decoders stop on every rank's items
-        (note_decoder_dual_infer). ``decode_chunk`` (None, an int or
+        (``_NoteDecode``). ``decode_chunk`` (None, an int or
         "auto"; ``pick_decode_chunk`` against B): the note decoders stop
         in groups of that many rows; ignored under ``group``, as the JAX
         package ignores it under a mesh.
 
-        On a card, without ``group`` and without gradients, the note
-        decoders run as replayed CUDA graphs (``_NoteGraph``, captured at
-        a shape's first forward and kept on this module); otherwise, one
-        step at a time (``note_decoder_dual_infer``). Both give the same
-        outputs.
+        The note decoders run one loop, ``_NoteDecode``, from
+        ``_NoteGraphs.bound``: on a card, without ``group`` and without
+        gradients, as replayed CUDA graphs (captured at a shape's first
+        forward and kept on this module); otherwise one uncaptured step at
+        a time. Both give the same outputs.
 
         Each bar's note decoders run in a span ``decode/notes``
         (``utils.profiling``; a record, no kineto range).
@@ -1371,8 +1330,8 @@ class HierarchicalDecoder(nn.Module):
         enc_dec, enc_proj2 = self._note_operands(enc, decode_dtype)
         dual = dual_decode_params(self.upper_decoder, self.lower_decoder,
                                   cfg, decode_dtype)
-        graph = (self._note_graphs.bound(dual, cfg, enc_dec, enc_proj2, chunk)
-                 if runs_as_graph(enc, group) else None)
+        notes = self._note_graphs.bound(dual, cfg, enc_dec, enc_proj2, chunk,
+                                        group)
 
         token = self.sos_token(B, dev)
         t_s = max(cfg.max_length)
@@ -1385,11 +1344,8 @@ class HierarchicalDecoder(nn.Module):
                                      hidden)
             hidden = bar_summary
             with P.span("decode/notes", ranged=False):
-                h0 = bar_summary.to(enc_dec.dtype)
-                (up_logp, up_tok, up_len), (low_logp, low_tok, low_len) = (
-                    note_decoder_dual_infer(dual, cfg, enc_dec, enc_proj2, h0,
-                                            group, chunk)
-                    if graph is None else graph.decode(h0))
+                (up_logp, up_tok, up_len), (low_logp, low_tok, low_len) = \
+                    notes.decode(bar_summary.to(enc_dec.dtype))
             head_in = torch.cat([bar_summary, context], dim=-1)
             ts_logp = torch.log_softmax(self.time_sig_out(head_in), dim=-1)
             key_logp = torch.log_softmax(self.key_out(head_in), dim=-1)

@@ -4,9 +4,11 @@ the split of the frames into chunks (``pick_chunks``, the kernel's grid)
 and the (staff, stop group) pairs that step (``step_mask``).
 
 The model's torch-op step is ``models/score_transcription.py::
-_masked_step`` around ``_fast_step``; the tests hold a plain twin of K2's
-algorithm against it on the CPU, and the kernel against it on the card
-(``tests/test_torch_note_step_cuda.py``).
+_masked_step`` around ``_fast_step``, the step of the model's one greedy
+note-decode loop (``_NoteDecode``: K steps a replayed CUDA graph on a
+card, single steps on the CPU and under a data-parallel group); the tests
+hold a plain twin of K2's algorithm against it on the CPU, and the kernel
+against it on the card (``tests/test_torch_note_step_cuda.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ def step_mask(done: torch.Tensor, t: torch.Tensor, caps: torch.Tensor,
               ) -> torch.Tensor:
     """(2, B) bool: the rows of the (staff, group) pairs that step: t is
     under the staff's cap (caps (2, 1)) and the group is ``live`` ((2,
-    groups) bool; by default, some row of it has not emitted EOS)."""
+    groups) bool, under a data-parallel group the all-reduced flag of the
+    step before; by default, some row of it has not emitted EOS)."""
     B = done.shape[1]
     if live is None:
         live = (~done).reshape(2, groups, -1).any(dim=2)

@@ -1,18 +1,23 @@
-"""The greedy note decode's graph path (``_NoteGraph``) run eagerly on the
-CPU against the eager loop (``note_decoder_dual_infer``).
+"""The greedy note decode's one loop (``_NoteDecode``): blocks of K steps
+against single steps.
 
-On a card the graph path replays a CUDA graph of K steps; its body is
-plain torch, so the CPU runs the same blocks without capturing them. The
-bars here are the real bars of a weak model's greedy forward (the
-note decoders' inputs taken from each call of the eager loop), so the
-stop groups stop where that model stops them. Tokens, lengths and
-log-probs must be exactly equal, and the counters those of the eager loop
-(the steps rounded up to whole blocks). The card's own test is
-``test_graph_path_matches_the_eager_loop_on_the_card`` (marked cuda).
+On a card the loop replays a CUDA graph of K steps; its body is plain
+torch, so the CPU runs the same blocks without capturing them, and holds
+them against the loop the CPU itself runs, uncaptured single steps (K = 1;
+``test_torch_model.py``, ``test_torch_decode_chunk.py`` and
+``test_torch_parallel.py`` hold that against the JAX package). The bars
+here are the real bars of a weak model's greedy forward (the note
+decodes' operands taken from each bar of the forward), so the stop groups
+stop where that model stops them. Tokens, lengths and log-probs must be
+exactly equal, and the counters those of single steps (the steps rounded
+up to whole blocks). The card's own test is
+``test_graph_path_matches_the_eager_loop_on_the_card`` (marked cuda),
+captured blocks against uncaptured single steps there.
 """
 
 import contextlib
 import math
+import threading
 import types
 
 import numpy as np
@@ -57,19 +62,22 @@ def _spec(b, seed=0):
 
 
 def _bars(monkeypatch, eos_bias, b, dtype):
-    """The note decoders' calls of a greedy forward: (args, outputs) a bar,
-    through the eager loop (a CPU forward takes no graph)."""
+    """The note decodes of a greedy forward, a bar each: ((operands, h0,
+    group, stop group size, K), outputs). A CPU forward captures nothing:
+    it runs uncaptured single steps."""
     calls = []
-    eager = tst.note_decoder_dual_infer
+    decode = tst._NoteDecode.decode
 
-    def spy(*args):
-        out = eager(*args)
-        calls.append((args, out))
+    def spy(self, h0):
+        out = decode(self, h0)
+        g = self.st.groups
+        calls.append(((self.p, self.cfg, self.enc, self.enc_proj2, h0,
+                       self.group, b // g if g > 1 else None, self.k), out))
         return out
 
-    monkeypatch.setattr(tst, "note_decoder_dual_infer", spy)
+    monkeypatch.setattr(tst._NoteDecode, "decode", spy)
     _weak_model(eos_bias)(_spec(b), decode_chunk=CHUNK, decode_dtype=dtype)
-    monkeypatch.setattr(tst, "note_decoder_dual_infer", eager)
+    monkeypatch.setattr(tst._NoteDecode, "decode", decode)
     assert len(calls) == CFG.max_bars
     return calls
 
@@ -105,27 +113,33 @@ def _stop_steps(out, chunk, b):
 ])
 def test_graph_body_matches_the_eager_loop(monkeypatch, case, eos_bias, b, k,
                                            dtype):
+    """Blocks of K steps equal single steps (K = 1, the loop the forward
+    ran)."""
     calls = _bars(monkeypatch, eos_bias, b, dtype)
     caps, T = CFG.max_length, max(CFG.max_length)
     stops = []
-    for (p, cfg, enc, enc_proj2, h0, group, chunk), _ in calls:
+    for (p, cfg, enc, enc_proj2, h0, group, chunk, one), forward in calls:
         assert group is None and chunk == (CHUNK if b > CHUNK else None)
-        eager, eager_counts = _traced(
-            lambda: tst.note_decoder_dual_infer(p, cfg, enc, enc_proj2, h0,
-                                                group, chunk))
-        graph = tst._NoteGraph(p, cfg, enc, enc_proj2, chunk, k).bind(
-            p, enc, enc_proj2)
-        got, counts = _traced(lambda: graph.decode(h0))
-        for (e_logp, e_tok, e_len), (g_logp, g_tok, g_len) in zip(eager, got):
-            assert g_logp.dtype == e_logp.dtype == torch.float32
-            assert torch.equal(g_tok, e_tok) and torch.equal(g_len, e_len)
-            assert torch.equal(g_logp, e_logp)
-        stops.append(_stop_steps(eager, chunk, b))
-        # The eager loop's counters, with the steps rounded up to whole
+        assert one == 1
+
+        def decode(k):
+            return tst._NoteDecode(p, cfg, enc, enc_proj2, chunk, k).bind(
+                p, enc, enc_proj2).decode(h0)
+
+        single, single_counts = _traced(lambda: decode(1))
+        got, counts = _traced(lambda: decode(k))
+        for want in (forward, got):
+            for (s_logp, s_tok, s_len), (g_logp, g_tok, g_len) in zip(
+                    single, want):
+                assert g_logp.dtype == s_logp.dtype == torch.float32
+                assert torch.equal(g_tok, s_tok) and torch.equal(g_len, s_len)
+                assert torch.equal(g_logp, s_logp)
+        stops.append(_stop_steps(single, chunk, b))
+        # Single steps' counters, with the steps rounded up to whole
         # blocks; no graph ran.
-        steps = eager_counts["note_steps"]
+        steps = single_counts["note_steps"]
         run = min(k * math.ceil(steps / k), k * math.ceil(T / k))
-        assert counts == dict(eager_counts, note_steps=run,
+        assert counts == dict(single_counts, note_steps=run,
                               rows_computed=2 * b * run,
                               stop_read_ns=counts["stop_read_ns"])
     # Each case decodes what it is named for.
@@ -146,8 +160,9 @@ def test_graph_body_matches_the_eager_loop(monkeypatch, case, eos_bias, b, k,
 
 def test_the_graph_path_is_taken_on_a_card_without_group_or_grad():
     """The rule the forward follows, on stand-ins for a card's tensors: a
-    data-parallel group (its stop read is an all-reduce a step) and a
-    call with gradients keep the eager loop, as every CPU tensor does."""
+    data-parallel group (its stop read is an all-reduce after every step)
+    and a call with gradients run uncaptured single steps, as every CPU
+    tensor does."""
     card = types.SimpleNamespace(is_cuda=True)
     with torch.no_grad():
         assert tst.runs_as_graph(card)
@@ -170,6 +185,41 @@ def test_a_copy_of_the_decoder_keeps_no_graph():
     for other in (copy.deepcopy(dec), pickle.loads(pickle.dumps(dec))):
         assert other._note_graphs._by_shape == {}
     assert dec._note_graphs._by_shape
+
+
+def test_threads_share_one_cpu_model():
+    """Off the card each forward makes its own decode and keeps none: two
+    threads that run greedy forwards on one CPU model at once get what
+    serial calls get."""
+    model = _weak_model(EOS_BIAS)
+    specs = [_spec(32, seed) for seed in range(1, 7)]
+    with torch.no_grad():
+        want = [model(x, decode_chunk=CHUNK) for x in specs]
+    got, errors = [None] * len(specs), []
+    start = threading.Barrier(2)
+
+    def serve(first):
+        try:
+            start.wait()
+            with torch.no_grad():
+                for i in range(first, len(specs), 2):
+                    got[i] = model(specs[i], decode_chunk=CHUNK)
+        except BaseException as exc:  # re-raised on the test's thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for g, w in zip(got, want):
+        for a, b in zip(g[:4], w[:4]):
+            assert torch.equal(a, b)
+        for k in w[4]:
+            assert torch.equal(g[4][k], w[4][k]), k
+    assert model.decoder._note_graphs._by_shape == {}
 
 
 # --- on the card -------------------------------------------------------------
@@ -207,8 +257,8 @@ def _card_spec(b, seed, dev):
 
 
 def _eager_forward(monkeypatch, model, spec, dtype=None):
-    """The greedy forward with the graph path turned off (the eager loop
-    on the card)."""
+    """The greedy forward with capture turned off (uncaptured single steps,
+    K = 1, on the card)."""
     with monkeypatch.context() as m:
         m.setattr(tst, "runs_as_graph", lambda *a: False)
         return model(spec, decode_chunk=CARD_CHUNK, decode_dtype=dtype)

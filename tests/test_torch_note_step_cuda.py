@@ -426,9 +426,10 @@ def test_k2_matches_the_torch_op_step_on_the_card(card, monkeypatch, rows,
 def test_a_graph_decode_on_k2_equals_the_eager_loop_on_the_card(
         card, monkeypatch):
     """A whole greedy forward at the paper's widths: the replayed graphs of
-    K2 steps give the eager loop's tokens and lengths (the eager loop runs
-    K2 too); both count four K2 launches a step and one a bar, and every
-    step's attention kernel starts inside its bar's decode/notes span."""
+    K2 steps give the tokens and lengths of uncaptured single steps (which
+    run K2 too); both count four K2 launches a step and one a bar, and
+    every step's attention kernel starts inside its bar's decode/notes
+    span."""
     from torch.profiler import ProfilerActivity, profile
 
     from piano_a2s_tpu_torch.utils import profiling as P
