@@ -25,6 +25,12 @@ Phases, each of which raises on failure:
       most twice the torch-op step's own float32 error, or 1e-5), then
       both steps' time a step, each replayed as a CUDA graph of 16 steps
       (CUDA events), beside the step's bound (its bytes at 3.35 TB/s).
+  (c3) K3, the staff-summary kernel (csrc/staff_summary.cu), at (S, B, T)
+      = (2, 16, 398) with lengths 398 and 189: its build and ptxas lines,
+      its summaries against float64 (at most twice the packed float32
+      call's own error), its time (CUDA events, median of 20) beside its
+      bound and the packed cuDNN call's (``library_ms``: the call the
+      float32 greedy paths no longer make, its host length read included).
   (d) full-width model on one 12 s clip, GPU against the port's CPU path
       (random weights from seed 0): spectrogram within 1e-4, encoder
       output within 1e-3, decode log-probs within 1e-3 up to the first
@@ -208,7 +214,11 @@ must have launched every kernel it runs. K2's launches are counted over
 the same stretches (zeroed with the VQT kernel's, 4 a step and 1 a bar,
 graph replays included), and (o3)'s in-process calls as a path of their
 own: every float32 greedy path on the card (``K2_PATHS``) must have
-launched it, the bf16 serving path never. The line before the last
+launched it, the bf16 serving path never. K3's are counted beside them
+(one a staff-summary call: a forward's sos_token and one a bar): every
+greedy path (``K3_PATHS``, bf16 serving's float32 bar level too) must have
+launched it, the training paths (g2) and (i2), whose summaries need
+gradients, never. The line before the last
 holds the kernels' JSON record (``launches`` is the sum over the paths,
 ``launches_by_path`` each path's count); the last line is the result
 object.
@@ -588,14 +598,110 @@ def phase_note_step(torch, tmodels):
     return results
 
 
+# K3's calls a timed stretch: back to back, so that the host's part of a
+# call (the wrapper's checks) hides behind the kernels before it.
+K3_SHAPE, K3_LENGTHS, K3_CALLS = (2, 16, 398), (398, 189), 10
+# H100 SXM data sheet: float32 outside the tensor cores, 67 TFLOP/s.
+FP32_FLOP_PER_S = 67e12
+
+
+def staff_summary_bound(cfg, shape, lengths):
+    """(ms, what bounds it, operations, bytes) of the least time of the
+    staff summaries of ``shape`` = (S, B, T) at ``lengths`` (one a staff):
+    each direction's 3H x (E + H) multiply-adds a step up to each length at
+    67 TFLOP/s (float32, FFMA), or the tokens up to each length, the
+    embedding table, both directions' weights and the output read or
+    written once at 3.35 TB/s."""
+    S, B, _ = shape
+    E, H = cfg.note_emb_size, cfg.staff_emb_size
+    steps = B * sum(lengths)
+    flop = 2 * 2 * steps * 3 * H * (E + H)
+    nbytes = (8 * steps + 4 * cfg.vocab_size * E
+              + 4 * 2 * (3 * H * (E + H) + 6 * H) + 4 * S * B * 2 * H)
+    t_ops, t_bytes = flop / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes", flop, nbytes)
+
+
+def phase_staff_summary(torch, tmodels):
+    """(c3) K3, the staff-summary kernel, at K3_SHAPE with K3_LENGTHS: its
+    summaries against the packed call in float64 (on the CPU), beside the
+    packed float32 call's own error; its time and the packed cuDNN call's
+    (the float32 greedy paths' before K3, its host length read included)
+    beside the bound."""
+    from piano_a2s_tpu_torch.ops import _build
+    from piano_a2s_tpu_torch.ops import gru as tgru
+    from piano_a2s_tpu_torch.ops.staff_summary_cuda import staff_summary_cuda
+    build = _build.build("staff_summary")
+    print(f"(c3) built {build.path} in {build.seconds:.2f} s")
+    for line in build.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"(c3) ptxas: {line.strip()}")
+    staff_summary_cuda.launches = 0
+    dev = torch.device("cuda")
+    cfg = tmodels.ModelConfig()
+    model = tmodels.ScoreTranscription(cfg)
+    model.load_state_dict(tmodels.init_state_dict(cfg, seed=0))
+    dec = model.decoder.to(dev)
+    dec64 = copy.deepcopy(model.decoder).cpu().double()
+    S, B, T = K3_SHAPE
+    tokens = torch.tensor(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, K3_SHAPE), device=dev)
+    lengths = torch.tensor([[n] * B for n in K3_LENGTHS], device=dev)
+
+    def k3():
+        return staff_summary_cuda(dec.staff_emb, dec.note_emb.weight, tokens,
+                                  lengths)
+
+    def packed():
+        return tgru.bidir_final_fused(dec.staff_emb,
+                                      dec.note_emb.weight[tokens], lengths)
+
+    with torch.inference_mode():
+        got, plain = k3(), packed()
+        torch.cuda.synchronize()
+        ref = tgru.bidir_final_fused(dec64.staff_emb,
+                                     dec64.note_emb.weight[tokens.cpu()],
+                                     lengths.cpu())
+        err = (got.cpu().double() - ref).abs().max().item()
+        plain_err = (plain.cpu().double() - ref).abs().max().item()
+        print(f"(c3) K3 at {K3_SHAPE}, lengths {K3_LENGTHS}: against "
+              f"float64 {err:.3e} (the packed float32 call {plain_err:.3e}); "
+              f"|K3 - packed| {(got - plain).abs().max().item():.3e}")
+        check(err <= 2 * plain_err, "(c3) K3 within twice the packed call's "
+              "float32 error")
+        def k3_calls():
+            for _ in range(K3_CALLS):
+                k3()
+
+        times, library = [cuda_ms(k3_calls) / K3_CALLS], [cuda_ms(packed)]
+        times.append(cuda_ms(k3_calls) / K3_CALLS)
+        library.append(cuda_ms(packed))
+    ms, library_ms = float(np.median(times)), float(np.median(library))
+    bound_ms, bound_by, flop, nbytes = staff_summary_bound(cfg, K3_SHAPE,
+                                                           K3_LENGTHS)
+    print(f"(c3) call time: K3 {times} ms ({1e3 * ms / max(K3_LENGTHS):.3f}"
+          f" us a step of the {max(K3_LENGTHS)}-step chain; {K3_CALLS} calls "
+          f"a timed stretch), the packed cuDNN call {library} ms (median of "
+          f"20 stretches each); bound {bound_ms:.4f}"
+          f" ms by {bound_by} ({flop / 1e9:.3f} GFLOP at 67 TFLOP/s, "
+          f"{nbytes / 1e3:.1f} KB at 3.35 TB/s): K3 at "
+          f"{100 * bound_ms / ms:.2f}% of it")
+    check(staff_summary_cuda.launches > 0, "(c3) K3 launched")
+    return {"ms": ms, "library_ms": library_ms, "plain_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "err_f64": err,
+            "plain_err_f64": plain_err}
+
+
 class PathLaunches:
     """The VQT kernel's launch count as the phases zero and read it
-    (``launches``), with K2's beside it: zeroing the one zeroes the other,
-    so that ``k2`` reads K2's launches over the same path (4 a step, 1 a
-    bar, graph replays included: ``ops/note_step_cuda.py``)."""
+    (``launches``), with K2's and K3's beside it: zeroing the one zeroes
+    the others, so that ``k2`` and ``k3`` read their launches over the same
+    path (K2: 4 a step, 1 a bar, graph replays included:
+    ``ops/note_step_cuda.py``; K3: one a staff-summary call)."""
 
-    def __init__(self, vqt, k2):
-        self._vqt, self._k2 = vqt, k2
+    def __init__(self, vqt, k2, k3):
+        self._vqt, self._k2, self._k3 = vqt, k2, k3
 
     @property
     def launches(self):
@@ -605,10 +711,15 @@ class PathLaunches:
     def launches(self, n):
         self._vqt.launches = n
         self._k2.launches = 0
+        self._k3.launches = 0
 
     @property
     def k2(self):
         return self._k2.launches
+
+    @property
+    def k3(self):
+        return self._k3.launches
 
 
 # The paths that decode greedily in float32 on the card, and so run K2, and
@@ -616,6 +727,11 @@ class PathLaunches:
 K2_PATHS = ("serve", "serve_mesh", "synth", "evaluate", "load_test",
             "serve_chunked", "entry")
 NO_K2_PATHS = ("serve_bf16",)
+# The paths that decode greedily on the card, whose staff summaries (float32
+# in bf16 serving too) run K3, and the training paths, whose summaries need
+# gradients and must not.
+K3_PATHS = K2_PATHS + ("serve_bf16",)
+NO_K3_PATHS = ("train", "train_bf16")
 
 
 def vqt_bound(batch, samples, window=1120, bins=480, hop=160):
@@ -2147,12 +2263,12 @@ def phase_diagnostics(tmodels, tstep, load_transcriber, make_server, corpus,
     """(n) The three diagnostic tools on (k)'s corpus with (k3)'s weights,
     saved once into a save folder: (n1) frontend A/B, (n2) the attention
     probe, (n3) the HTTP load test, each path with its own launch count.
-    Returns the VQT kernel's launches by path and K2's."""
+    Returns the VQT kernel's launches by path, K2's and K3's."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="diagnostics_") as tmp:
         save = save_folder_of(tmodels, tstep, state_dict,
                               os.path.join(tmp, "save"))
-        launches, k2 = {}, {}
+        launches, k2, k3 = {}, {}, {}
         for name, run in (
                 ("frontend_ab", lambda: phase_frontend_ab(
                     save, corpus, os.path.join(tmp, "ab.json"), kernel)),
@@ -2162,9 +2278,9 @@ def phase_diagnostics(tmodels, tstep, load_transcriber, make_server, corpus,
                     load_transcriber, make_server, save, corpus, kernel))):
             t0 = time.monotonic()
             launches[name] = run()
-            k2[name] = kernel.k2
+            k2[name], k3[name] = kernel.k2, kernel.k3
             print(f"(n) {name} took {time.monotonic() - t0:.1f} s")
-    return launches, k2
+    return launches, k2, k3
 
 
 def m_kern_folder(kern):
@@ -2563,13 +2679,30 @@ def decode_extents(out, rows):
             for staff in ("up", "low")}
 
 
+def first_divergence_bar(alone, mine, cfg, staff):
+    """The first bar in which some clip's ``staff`` tokens differ from its
+    lone decode's within the steps the lone decode ran (cfg.max_bars where
+    none does)."""
+    for bar in range(cfg.max_bars):
+        ran = (alone[staff][:, bar].abs().sum(-1) > 0).sum(-1)
+        steps = np.arange(alone[f"{staff}_tok"].shape[-1])[None] < \
+            ran.numpy()[:, None]
+        differ = (mine[f"{staff}_tok"][:, bar] != alone[f"{staff}_tok"][
+            :, bar]).numpy() & steps
+        if differ.any():
+            return bar
+    return cfg.max_bars
+
+
 def check_stop_groups(torch, tr, audio, cfg, tol_logp, tol_margin, label):
     """(o1) ``tr``'s decode of the prepared batch ``audio`` at decode_chunk
     "auto" against each stop group's clips decoded alone (one group).
 
     The gate of the stop groups: every clip ran the same steps at every
     bar and staff as alone (before the bar of a first token divergence in
-    its group, where the group's stop may move with it), so each group
+    its group, where the group's stop may move with it, and in that bar on
+    the staff that did not diverge, whose decode there reads nothing of the
+    other staff's), so each group
     stopped on its own. Its control: the one-group decode of the whole
     batch (decode_chunk None) runs each group to the slowest group's step
     and must fail that gate, on the bars it covers, in at least one
@@ -2601,6 +2734,12 @@ def check_stop_groups(torch, tr, audio, cfg, tol_logp, tol_margin, label):
         near = [(i, d[2], d[3]) for i, d in enumerate(diffs)
                 if d[2] is not None]
         bars = min([where[0] for _, where, _ in near] + [cfg.max_bars])
+        first = {st: first_divergence_bar(alone, mine, cfg, st)
+                 for st in ("up", "low")}
+        check(min(first.values()) == bars, f"{label} group {g}: the first "
+              "divergence by staff agrees with the clips' first")
+        gated = {st: [b for b in range(cfg.max_bars)
+                      if b < bars or b == bars < first[st]] for st in first}
         lone = decode_extents(alone, slice(None))
         got = decode_extents(mine, slice(None))
         by_one = decode_extents(one, rows)
@@ -2608,12 +2747,14 @@ def check_stop_groups(torch, tr, audio, cfg, tol_logp, tol_margin, label):
                         if any(not torch.equal(by_one[st][:, b],
                                                lone[st][:, b])
                                for st in lone)])
-        same_steps = all(torch.equal(got[st][:, :bars], lone[st][:, :bars])
+        same_steps = all(torch.equal(got[st][:, gated[st]],
+                                     lone[st][:, gated[st]])
                          for st in lone)
         gap = (mine["up"] - alone["up"]).abs().flatten()
         margin_tol = 2 * worst if tol_margin is None else tol_margin
         gate = "a reading" if tol_logp is None else f"atol {tol_logp}"
-        gated = f"bars 0-{bars - 1}" if bars else "no bar"
+        covered = "; ".join(f"{st} {gated[st] or 'no bar'}"
+                            for st in gated)
         print(f"{label} group {g} (clips {rows.start}-{rows.stop - 1}) "
               f"against its clips alone: max|difference| log-prob "
               f"{worst:.3e} ({gate}; the upper staff's largest "
@@ -2621,9 +2762,12 @@ def check_stop_groups(torch, tr, audio, cfg, tol_logp, tol_margin, label):
               f"{float(alone['up'].flatten()[gap.argmax()]):.3f}); "
               f"divergences (clip, (bar, staff, step), top-2 margin; "
               f"tolerance {margin_tol:.3e}): {near or 'none'}; steps "
-              f"equal to alone over {gated}: {same_steps}; the one-group "
-              f"decode's steps differ in bars {control[-1] or 'none'}")
-        control[-1] = any(b < bars for b in control[-1])
+              f"equal to alone over bars {covered}: {same_steps}; the "
+              f"one-group decode's steps differ in bars "
+              f"{control[-1] or 'none'}")
+        control[-1] = any(
+            not torch.equal(by_one[st][:, b], lone[st][:, b])
+            for st in gated for b in gated[st])
         if tol_logp is not None:
             check(worst < tol_logp, f"{label} group {g} log-probs agree")
         check(same_steps,
@@ -2857,9 +3001,16 @@ def main():
     from piano_a2s_tpu_torch.ops import _build
     from piano_a2s_tpu_torch.ops import vqt as tvqt
     from piano_a2s_tpu_torch.ops.note_step_cuda import note_step_cuda
+    from piano_a2s_tpu_torch.ops.staff_summary_cuda import staff_summary_cuda
     from piano_a2s_tpu_torch.ops.vqt_cuda import vqt_magnitude_cuda
     from piano_a2s_tpu_torch.serve import make_server
-    counts = PathLaunches(vqt_magnitude_cuda, note_step_cuda)
+    counts = PathLaunches(vqt_magnitude_cuda, note_step_cuda,
+                          staff_summary_cuda)
+    k2, k3 = {}, {}
+
+    def took(path):
+        """K2's and K3's launches over ``path``, just run."""
+        k2[path], k3[path] = counts.k2, counts.k3
 
     # (a) device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2885,6 +3036,9 @@ def main():
 
     # (c2) K2, the note-decoder step kernel
     k2_results = phase_note_step(torch, tmodels)
+
+    # (c3) K3, the staff-summary kernel
+    k3_results = phase_staff_summary(torch, tmodels)
 
     # (d) full width, GPU vs CPU
     cfg = ModelConfig()
@@ -2917,7 +3071,7 @@ def main():
     check(after_server > after_batch, "the server went through the vqt "
           "kernel")
     launches = {"serve": after_server}
-    k2 = {"serve": counts.k2}
+    took("serve")
     del gpu
 
     # (g) training; (g2) is the training path, with the counts zeroed first.
@@ -2926,7 +3080,8 @@ def main():
     counts.launches = 0
     _, f32_peak = phase_train_full(torch, tmodels, tstep, tvqt,
                                    lambda: counts.launches)
-    launches["train"], k2["train"] = counts.launches, counts.k2
+    launches["train"] = counts.launches
+    took("train")
     print(f"(g2) vqt kernel launches over (g2): {launches['train']}")
     check(launches["train"] == TRAIN_STEPS + 2,
           "the training path went through the vqt kernel")
@@ -2936,7 +3091,8 @@ def main():
     # (h) the training harness, with its own launch count.
     counts.launches = 0
     expected = phase_trainer(torch)
-    launches["trainer"], k2["trainer"] = counts.launches, counts.k2
+    launches["trainer"] = counts.launches
+    took("trainer")
     print(f"(h) vqt kernel launches over (h): {launches['trainer']} "
           f"(expected {expected}); phases (a)-(g) took "
           f"{seconds_a_to_g:.1f} s, (h) {time.monotonic() - t_h:.1f} s")
@@ -2950,14 +3106,15 @@ def main():
     launches["serve_bf16"] = phase_serve_bf16(
         torch, tvqt, Transcriber, make_server, state_dict, cfg, clips,
         e_seconds, counts)
-    k2["serve_bf16"] = counts.k2
+    took("serve_bf16")
     print(f"(i1) vqt kernel launches over the bf16 serving path: "
           f"{launches['serve_bf16']}")
     gc.collect()
     counts.launches = 0
     phase_train_bf16(torch, tmodels, tstep, tvqt,
                      lambda: counts.launches, f32_peak)
-    launches["train_bf16"], k2["train_bf16"] = counts.launches, counts.k2
+    launches["train_bf16"] = counts.launches
+    took("train_bf16")
     print(f"(i2) vqt kernel launches over (i2): {launches['train_bf16']}; "
           f"(i) took {time.monotonic() - t_i:.1f} s")
     check(launches["train_bf16"] == BF16_TRAIN_STEPS,
@@ -2969,11 +3126,11 @@ def main():
     launches["serve_mesh"] = phase_serve_mesh(
         torch, Transcriber, state_dict, cfg, clips, results,
         counts)
-    k2["serve_mesh"] = counts.k2
+    took("serve_mesh")
     gc.collect()
     launches["train_dp"] = phase_train_dp(torch, tmodels, tstep, tvqt,
                                           counts)
-    k2["train_dp"] = counts.k2
+    took("train_dp")
     print(f"(j2) vqt kernel launches over (j2): {launches['train_dp']}; "
           f"(j) took {time.monotonic() - t_j:.1f} s")
 
@@ -2988,19 +3145,20 @@ def main():
         launches["synth"], memorized_state = phase_synth(
             torch, tmodels, tstep, tvqt, Transcriber, state_dict,
             counts, corpus)
-        k2["synth"] = counts.k2
+        took("synth")
         print(f"(k) took {time.monotonic() - t_k:.1f} s")
         t_l = time.monotonic()
         launches["evaluate"] = phase_evaluate(torch, corpus, memorized_state,
                                               counts)
-        k2["evaluate"] = counts.k2
+        took("evaluate")
         print(f"(l) took {time.monotonic() - t_l:.1f} s")
         t_n = time.monotonic()
-        by_path, k2_by_path = phase_diagnostics(
+        by_path, k2_by_path, k3_by_path = phase_diagnostics(
             tmodels, tstep, load_transcriber, make_server, corpus,
             memorized_state, counts)
         launches.update(by_path)
         k2.update(k2_by_path)
+        k3.update(k3_by_path)
         print(f"(n) took {time.monotonic() - t_n:.1f} s")
 
         # (o) the port's last gaps: (o1) the stop groups, the path
@@ -3013,7 +3171,7 @@ def main():
         launches["serve_chunked"] = phase_stop_groups(
             torch, Transcriber, memorized_state, ModelConfig(),
             memorized_audio, counts)
-        k2["serve_chunked"] = counts.k2
+        took("serve_chunked")
         print(f"(o1) took {time.monotonic() - t_o:.1f} s")
         t_o2 = time.monotonic()
         with tempfile.TemporaryDirectory(prefix="export_") as tmp:
@@ -3027,7 +3185,7 @@ def main():
     t_o3 = time.monotonic()
     counts.launches = 0
     phase_entry(torch, Transcriber, tmodels)
-    k2["entry"] = counts.k2
+    took("entry")
     print(f"(o3) took {time.monotonic() - t_o3:.1f} s")
     gc.collect()
     t_o4 = time.monotonic()
@@ -3043,7 +3201,7 @@ def main():
     gc.collect()
     t_m = time.monotonic()
     launches["prepare"] = phase_prepare(torch, tvqt, counts)
-    k2["prepare"] = counts.k2
+    took("prepare")
     print(f"(m) took {time.monotonic() - t_m:.1f} s")
     check("jax" not in sys.modules, "no jax imported")
     check(not any(m == "piano_a2s_tpu" or m.startswith("piano_a2s_tpu.")
@@ -3057,6 +3215,12 @@ def main():
           f"the float32 greedy paths ran K2: {k2}")
     check(all(k2[p] == 0 for p in NO_K2_PATHS),
           f"the bf16 serving path ran no K2: {k2}")
+    print(f"K3 launches by path, each counted from zero (one a summary "
+          f"call): {k3}")
+    check(all(k3[p] > 0 for p in K3_PATHS),
+          f"the greedy paths ran K3: {k3}")
+    check(all(k3[p] == 0 for p in NO_K3_PATHS),
+          f"the training paths ran no K3: {k3}")
     bound_ms, bound_by = vqt_bound(N_CLIPS, CLIP_SAMPLES)
     print(f"chip_smoke: every phase passed in {time.monotonic() - t_main:.1f}"
           f" s")
@@ -3080,7 +3244,16 @@ def main():
                   "query, the argmax and masked updates",
         "launches": sum(k2.values()), "launches_by_path": k2,
         "by_case": k2_results,
-        "bound_by": "bytes", "library_ms": None}]}))
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "staff_summary", "route": "cuda",
+        "source": "piano_a2s_tpu_torch/csrc/staff_summary.cu",
+        "replaces": "piano_a2s_tpu/ops/gru.py bidir_final_fused (the XLA "
+                    "scan; no Pallas kernel)",
+        "design": "1 launch a call: one warp per (sequence, direction), a "
+                  "lane per hidden unit with its W_hh rows in registers, h "
+                  "through shared memory, the input half a step ahead",
+        "launches": sum(k3.values()), "launches_by_path": k3,
+        **k3_results}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

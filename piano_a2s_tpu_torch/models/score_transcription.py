@@ -48,6 +48,7 @@ from ..ops import attention as A
 from ..ops import gru as G
 from ..ops import layers as L
 from ..ops import note_step_cuda as K2
+from ..ops import staff_summary_cuda as K3
 from ..ops.note_step import step_mask
 from ..utils import profiling as P
 
@@ -316,6 +317,23 @@ def uses_k2(enc: torch.Tensor) -> bool:
     float32 decode on a card at widths K2 is not built for raises in its
     wrapper rather than fall back."""
     return enc.is_cuda and enc.dtype == torch.float32
+
+
+def uses_k3(tokens: torch.Tensor, *modules: nn.Module) -> bool:
+    """Whether staff summaries of ``tokens`` through ``modules`` (the note
+    embedding and the staff GRU) run K3, the hand-written kernel
+    (``ops/staff_summary_cuda.py``): tokens on a card, float32 weights and
+    no gradient needed (grad off, or no weight requires it). Every other
+    call runs the packed ``nn.GRU`` (``ops/gru.py::bidir_final_fused``): the
+    CPU's, float64's, and the teacher-forced forward's in training, whose
+    backward is cuDNN's. Decided by what the call can see alone: a call on
+    a card at widths K3 is not built for raises in its wrapper rather than
+    fall back."""
+    weights = [w for m in modules for w in m.parameters()]
+    return (tokens.is_cuda
+            and all(w.dtype == torch.float32 for w in weights)
+            and not (torch.is_grad_enabled()
+                     and any(w.requires_grad for w in weights)))
 
 
 class _DecodeState:
@@ -1264,8 +1282,19 @@ class HierarchicalDecoder(nn.Module):
 
     def staff_summaries(self, tokens: torch.Tensor,
                         lengths: torch.Tensor) -> torch.Tensor:
-        """S staff summaries in one packed GRU call: tokens (S, B, T),
-        lengths (S, B) -> (S, B, 2 * staff_emb_size)."""
+        """S staff summaries in one call: tokens (S, B, T), lengths (S, B),
+        each in [1, T] -> (S, B, 2 * staff_emb_size). K3 where ``uses_k3``
+        holds (the lengths moved to the tokens' card, never read back),
+        else one packed GRU call. Counts ``summary_rows`` (S x B) and
+        ``summary_kernel_rows`` (those K3 computed) on the enclosing span
+        (``forward/decoder``)."""
+        rows = tokens.shape[0] * tokens.shape[1]
+        kernel = uses_k3(tokens, self.note_emb, self.staff_emb)
+        P.count("summary_rows", rows)
+        P.count("summary_kernel_rows", rows if kernel else 0)
+        if kernel:
+            return K3.staff_summary_cuda(self.staff_emb, self.note_emb.weight,
+                                         tokens, lengths.to(tokens.device))
         return G.bidir_final_fused(self.staff_emb,
                                    L.embed(self.note_emb.weight, tokens),
                                    lengths)
@@ -1275,10 +1304,11 @@ class HierarchicalDecoder(nn.Module):
         [<sos>, <eos>] for both staves, plus the SOS time- and
         key-signature embeddings."""
         cfg = self.cfg
-        sos_pair = torch.tensor([[[cfg.sos, cfg.eos]]], device=dev) \
-            .repeat(1, B, 1)
+        sos_pair = torch.full((1, B, 2), cfg.eos, dtype=torch.long,
+                              device=dev)
+        sos_pair[..., 0] = cfg.sos
         staff0 = self.staff_summaries(
-            sos_pair, torch.full((1, B), 2, dtype=torch.long))[0]
+            sos_pair, torch.full((1, B), 2, dtype=torch.long, device=dev))[0]
         time0 = self.time_sig_emb.weight[cfg.num_time_sig].expand(B, -1)
         key0 = self.key_emb.weight[cfg.num_keys].expand(B, -1)
         return torch.cat([staff0, staff0, time0, key0], dim=-1)

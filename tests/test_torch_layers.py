@@ -147,6 +147,29 @@ def test_bidir_final_fused_ragged(weights):
     np.testing.assert_array_equal(got_noisy.numpy(), got.numpy())
 
 
+def test_staff_summary_twin_matches_the_jax_package(weights):
+    """K3's plain twin (tests/test_torch_staff_summary_cuda.py) against the
+    JAX package's bidir_final_fused on ragged lengths, 1 and T among
+    them."""
+    from test_torch_staff_summary_cuda import staff_summary_plain
+
+    params, _, model = weights
+    rng = np.random.RandomState(9)
+    S, T = 3, 7
+    tokens = rng.randint(0, CFG.vocab_size, (S, B, T))
+    lengths = np.array([[1, 7], [4, 2], [7, 1]])
+    dec = params["decoder"]
+    xs = np.asarray(dec["note_emb"]["emb"])[tokens]
+    ref = jgru.bidir_final_fused(dec["staff_fwd"], dec["staff_bwd"],
+                                 jnp.asarray(xs), jnp.asarray(lengths))
+    with torch.no_grad():
+        got = staff_summary_plain(model.decoder.staff_emb,
+                                  model.decoder.note_emb.weight,
+                                  torch.from_numpy(tokens),
+                                  torch.from_numpy(lengths))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
 def test_gru_step(weights):
     params, _, model = weights
     rng = np.random.RandomState(9)
