@@ -31,6 +31,13 @@ Phases, each of which raises on failure:
       call's own error), its time (CUDA events, median of 20) beside its
       bound and the packed cuDNN call's (``library_ms``: the call the
       float32 greedy paths no longer make, its host length read included).
+  (c4) K4, the encoder's GRU recurrence (csrc/encoder_gru.cu), at (B, T)
+      = (16, 1201) and (64, 1201): its build and ptxas lines (no spills),
+      its launch plan, enc and h_n against float64 (at most twice cuDNN's
+      float32 call's own error), its time (CUDA events, median of 20, the
+      four input products included) beside the whole call's bound and
+      cuDNN's nn.GRU call (``library_ms``), and its time a step beside the
+      chain's bound (a step's multiply-adds on 16 SMs at 67 TFLOP/s / 132).
   (d) full-width model on one 12 s clip, GPU against the port's CPU path
       (random weights from seed 0): spectrogram within 1e-4, encoder
       output within 1e-3, decode log-probs within 1e-3 up to the first
@@ -218,7 +225,9 @@ launched it, the bf16 serving path never. K3's are counted beside them
 (one a staff-summary call: a forward's sos_token and one a bar): every
 greedy path (``K3_PATHS``, bf16 serving's float32 bar level too) must have
 launched it, the training paths (g2) and (i2), whose summaries need
-gradients, never. The line before the last
+gradients, never. K4's are counted beside them (one a layer, two an
+encoder call): the same greedy paths must have launched it, the training
+paths, whose encoder needs gradients, never. The line before the last
 holds the kernels' JSON record (``launches`` is the sum over the paths,
 ``launches_by_path`` each path's count); the last line is the result
 object.
@@ -693,15 +702,115 @@ def phase_staff_summary(torch, tmodels):
             "plain_err_f64": plain_err}
 
 
+# K4's shapes: the offline cell's batch and (o1)'s, each of 12 s clips.
+K4_SHAPES = ((16, 1201), (64, 1201))
+SMS = 132
+
+
+def encoder_gru_bound(batch, frames, hidden=256, layers=2):
+    """(ms of the whole call, us a step of the chain): the call's
+    multiply-adds (every step's recurrent product and every layer's input
+    product, both directions) at 67 TFLOP/s float32; a step's recurrent
+    product of one direction on the 16 SMs of a cluster (67 TFLOP/s x 16 /
+    132), a yardstick for a chain of dependent steps."""
+    step = 2 * batch * 3 * hidden * hidden
+    inputs = sum(2 * batch * frames * n_in * 3 * hidden * 2
+                 for n_in in (hidden, 2 * hidden)[:layers])
+    flop = layers * 2 * frames * step + inputs
+    return (1e3 * flop / FP32_FLOP_PER_S,
+            1e6 * step / (FP32_FLOP_PER_S * 16 / SMS))
+
+
+def phase_encoder_gru(torch, tmodels):
+    """(c4) K4, the encoder's recurrence, at K4_SHAPES: enc and h_n against
+    cuDNN's nn.GRU in float64 on the card, beside cuDNN's float32 call's
+    own error; its time and cuDNN's float32 call's (the greedy paths'
+    before K4) beside the bounds."""
+    from piano_a2s_tpu_torch.ops import _build
+    from piano_a2s_tpu_torch.ops import encoder_gru_cuda as K4
+    import tempfile
+    build = _build.build("encoder_gru")
+    print(f"(c4) built {build.path} in {build.seconds:.2f} s")
+    log = build.log
+    if not log:
+        # Built before in this checkout: once more into a scratch folder,
+        # for ptxas's lines.
+        with tempfile.TemporaryDirectory(prefix="k4_build_") as tmp:
+            log = _build.build("encoder_gru", build_dir=tmp).log
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"(c4) ptxas: {line.strip()}")
+    spills = [line for line in log.splitlines() if "spill" in line]
+    check(spills and all("0 bytes spill stores, 0 bytes spill loads" in line
+                         for line in spills), "(c4) K4 spills nothing")
+    K4.encoder_gru_cuda.launches = 0
+    dev = torch.device("cuda")
+    cfg = tmodels.ModelConfig()
+    model = tmodels.ScoreTranscription(cfg)
+    model.load_state_dict(tmodels.init_state_dict(cfg, seed=0))
+    gru = model.encoder.gru.to(dev)
+    gru64 = copy.deepcopy(model.encoder.gru).double().to(dev)
+    results = {}
+    for B, T in K4_SHAPES:
+        print(f"(c4) plan at {B} rows: (rows a cluster, clusters, resident "
+              f"at once) {K4.plan(B)}")
+        # ConvStack features are a ReLU's: non-negative.
+        x = torch.relu(torch.from_numpy(np.random.RandomState(B).randn(
+            B, T, cfg.conv_feature_size).astype(np.float32))).to(dev)
+
+        def k4():
+            return K4.encoder_gru_cuda(gru, x)
+
+        def library():
+            return gru(x)
+
+        with torch.inference_mode():
+            got, plain, ref = k4(), library(), gru64(x.double())
+            torch.cuda.synchronize()
+            errs = {}
+            for i, name in enumerate(("enc", "h_n")):
+                err = (got[i].double() - ref[i]).abs().max().item()
+                plain_err = (plain[i].double() - ref[i]).abs().max().item()
+                errs[name] = (err, plain_err)
+                print(f"(c4) K4 at ({B}, {T}), {name}: against float64 "
+                      f"{err:.3e} (cuDNN float32 {plain_err:.3e}); "
+                      f"|K4 - cuDNN| "
+                      f"{(got[i] - plain[i]).abs().max().item():.3e}")
+                check(err <= 2 * plain_err, f"(c4) K4's {name} within twice "
+                      "cuDNN's float32 error")
+            times, lib = [cuda_ms(k4)], [cuda_ms(library)]
+            times.append(cuda_ms(k4))
+            lib.append(cuda_ms(library))
+        ms, library_ms = float(np.median(times)), float(np.median(lib))
+        bound_ms, chain_us = encoder_gru_bound(B, T)
+        step_us = 1e3 * ms / (2 * T)
+        print(f"(c4) call time at ({B}, {T}): K4 {times} ms ({step_us:.3f} "
+              f"us a step of the 2 x {T}-step chain, the input products "
+              f"included), cuDNN's nn.GRU {lib} ms (median of 20 each); "
+              f"bound {bound_ms:.3f} ms by operations at 67 TFLOP/s (K4 at "
+              f"{100 * bound_ms / ms:.2f}% of it), the chain's "
+              f"{chain_us:.3f} us a step on 16 SMs; {library_ms / ms:.2f}x "
+              f"cuDNN")
+        results[f"{B}x{T}"] = {
+            "ms": ms, "library_ms": library_ms, "plain_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": "operations",
+            "us_per_step": step_us, "chain_bound_us": chain_us,
+            "err_f64": max(e for e, _ in errs.values()),
+            "plain_err_f64": max(p for _, p in errs.values())}
+    check(K4.encoder_gru_cuda.launches > 0, "(c4) K4 launched")
+    return results
+
+
 class PathLaunches:
     """The VQT kernel's launch count as the phases zero and read it
-    (``launches``), with K2's and K3's beside it: zeroing the one zeroes
-    the others, so that ``k2`` and ``k3`` read their launches over the same
-    path (K2: 4 a step, 1 a bar, graph replays included:
-    ``ops/note_step_cuda.py``; K3: one a staff-summary call)."""
+    (``launches``), with K2's, K3's and K4's beside it: zeroing the one
+    zeroes the others, so that ``k2``, ``k3`` and ``k4`` read their
+    launches over the same path (K2: 4 a step, 1 a bar, graph replays
+    included: ``ops/note_step_cuda.py``; K3: one a staff-summary call; K4:
+    one a layer of an encoder call)."""
 
-    def __init__(self, vqt, k2, k3):
-        self._vqt, self._k2, self._k3 = vqt, k2, k3
+    def __init__(self, vqt, k2, k3, k4):
+        self._vqt, self._k2, self._k3, self._k4 = vqt, k2, k3, k4
 
     @property
     def launches(self):
@@ -712,6 +821,7 @@ class PathLaunches:
         self._vqt.launches = n
         self._k2.launches = 0
         self._k3.launches = 0
+        self._k4.launches = 0
 
     @property
     def k2(self):
@@ -720,6 +830,10 @@ class PathLaunches:
     @property
     def k3(self):
         return self._k3.launches
+
+    @property
+    def k4(self):
+        return self._k4.launches
 
 
 # The paths that decode greedily in float32 on the card, and so run K2, and
@@ -732,6 +846,9 @@ NO_K2_PATHS = ("serve_bf16",)
 # gradients and must not.
 K3_PATHS = K2_PATHS + ("serve_bf16",)
 NO_K3_PATHS = ("train", "train_bf16")
+# The same for K4: every greedy path's encoder (float32 in bf16 serving
+# too) runs it; the training paths' encoder needs gradients.
+K4_PATHS, NO_K4_PATHS = K3_PATHS, NO_K3_PATHS
 
 
 def vqt_bound(batch, samples, window=1120, bins=480, hop=160):
@@ -2263,12 +2380,12 @@ def phase_diagnostics(tmodels, tstep, load_transcriber, make_server, corpus,
     """(n) The three diagnostic tools on (k)'s corpus with (k3)'s weights,
     saved once into a save folder: (n1) frontend A/B, (n2) the attention
     probe, (n3) the HTTP load test, each path with its own launch count.
-    Returns the VQT kernel's launches by path, K2's and K3's."""
+    Returns the VQT kernel's launches by path, K2's, K3's and K4's."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="diagnostics_") as tmp:
         save = save_folder_of(tmodels, tstep, state_dict,
                               os.path.join(tmp, "save"))
-        launches, k2, k3 = {}, {}, {}
+        launches, k2, k3, k4 = {}, {}, {}, {}
         for name, run in (
                 ("frontend_ab", lambda: phase_frontend_ab(
                     save, corpus, os.path.join(tmp, "ab.json"), kernel)),
@@ -2278,9 +2395,9 @@ def phase_diagnostics(tmodels, tstep, load_transcriber, make_server, corpus,
                     load_transcriber, make_server, save, corpus, kernel))):
             t0 = time.monotonic()
             launches[name] = run()
-            k2[name], k3[name] = kernel.k2, kernel.k3
+            k2[name], k3[name], k4[name] = kernel.k2, kernel.k3, kernel.k4
             print(f"(n) {name} took {time.monotonic() - t0:.1f} s")
-    return launches, k2, k3
+    return launches, k2, k3, k4
 
 
 def m_kern_folder(kern):
@@ -3000,17 +3117,18 @@ def main():
     from piano_a2s_tpu_torch.models import ModelConfig, init_state_dict
     from piano_a2s_tpu_torch.ops import _build
     from piano_a2s_tpu_torch.ops import vqt as tvqt
+    from piano_a2s_tpu_torch.ops.encoder_gru_cuda import encoder_gru_cuda
     from piano_a2s_tpu_torch.ops.note_step_cuda import note_step_cuda
     from piano_a2s_tpu_torch.ops.staff_summary_cuda import staff_summary_cuda
     from piano_a2s_tpu_torch.ops.vqt_cuda import vqt_magnitude_cuda
     from piano_a2s_tpu_torch.serve import make_server
     counts = PathLaunches(vqt_magnitude_cuda, note_step_cuda,
-                          staff_summary_cuda)
-    k2, k3 = {}, {}
+                          staff_summary_cuda, encoder_gru_cuda)
+    k2, k3, k4 = {}, {}, {}
 
     def took(path):
-        """K2's and K3's launches over ``path``, just run."""
-        k2[path], k3[path] = counts.k2, counts.k3
+        """K2's, K3's and K4's launches over ``path``, just run."""
+        k2[path], k3[path], k4[path] = counts.k2, counts.k3, counts.k4
 
     # (a) device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3039,6 +3157,9 @@ def main():
 
     # (c3) K3, the staff-summary kernel
     k3_results = phase_staff_summary(torch, tmodels)
+
+    # (c4) K4, the encoder's recurrence
+    k4_results = phase_encoder_gru(torch, tmodels)
 
     # (d) full width, GPU vs CPU
     cfg = ModelConfig()
@@ -3153,12 +3274,13 @@ def main():
         took("evaluate")
         print(f"(l) took {time.monotonic() - t_l:.1f} s")
         t_n = time.monotonic()
-        by_path, k2_by_path, k3_by_path = phase_diagnostics(
+        by_path, k2_by_path, k3_by_path, k4_by_path = phase_diagnostics(
             tmodels, tstep, load_transcriber, make_server, corpus,
             memorized_state, counts)
         launches.update(by_path)
         k2.update(k2_by_path)
         k3.update(k3_by_path)
+        k4.update(k4_by_path)
         print(f"(n) took {time.monotonic() - t_n:.1f} s")
 
         # (o) the port's last gaps: (o1) the stop groups, the path
@@ -3221,6 +3343,12 @@ def main():
           f"the greedy paths ran K3: {k3}")
     check(all(k3[p] == 0 for p in NO_K3_PATHS),
           f"the training paths ran no K3: {k3}")
+    print(f"K4 launches by path, each counted from zero (one a layer, two "
+          f"an encoder call): {k4}")
+    check(all(k4[p] > 0 for p in K4_PATHS),
+          f"the greedy paths ran K4: {k4}")
+    check(all(k4[p] == 0 for p in NO_K4_PATHS),
+          f"the training paths ran no K4: {k4}")
     bound_ms, bound_by = vqt_bound(N_CLIPS, CLIP_SAMPLES)
     print(f"chip_smoke: every phase passed in {time.monotonic() - t_main:.1f}"
           f" s")
@@ -3253,7 +3381,18 @@ def main():
                   "lane per hidden unit with its W_hh rows in registers, h "
                   "through shared memory, the input half a step ahead",
         "launches": sum(k3.values()), "launches_by_path": k3,
-        **k3_results}]}))
+        **k3_results}, {
+        "name": "encoder_gru", "route": "cuda",
+        "source": "piano_a2s_tpu_torch/csrc/encoder_gru.cu",
+        "replaces": "piano_a2s_tpu/models/score_transcription.py "
+                    "encoder_apply (the XLA scan; no Pallas kernel)",
+        "design": "1 launch a layer after one cuBLAS input product a "
+                  "direction: a 16-CTA cluster per (direction, 8 rows), "
+                  "W_hh in registers, h sent to the cluster's CTAs by "
+                  "bulk copies that complete on their mbarriers",
+        "launches": sum(k4.values()), "launches_by_path": k4,
+        "by_shape": k4_results, "bound_by": "operations",
+        "library": "nn.GRU (cuDNN)"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -55,9 +55,10 @@ def entry(device="cuda", cfg: ModelConfig = None):
 
 
 # The dry run's model and batch: __graft_entry__.py's tiny shapes, but the
-# paper's hidden size (256): on a card the float32 eval step decodes
-# greedily through K2, which is built for those widths alone.
-DRYRUN_CFG = ModelConfig(freq_bins=16, conv_feature_size=32, hidden_size=256,
+# paper's encoder and hidden widths (256): on a card the float32 eval step
+# runs the encoder's GRU through K4 and decodes greedily through K2, which
+# are built for those widths alone.
+DRYRUN_CFG = ModelConfig(freq_bins=16, conv_feature_size=256, hidden_size=256,
                          max_bars=2, max_length=(8, 6), note_emb_size=8,
                          staff_emb_size=8)
 DRYRUN_FRAMES, DRYRUN_AUDIO_FRAMES = 24, 16

@@ -45,6 +45,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import attention as A
+from ..ops import encoder_gru_cuda as K4
 from ..ops import gru as G
 from ..ops import layers as L
 from ..ops import note_step_cuda as K2
@@ -189,6 +190,22 @@ class ConvStack(nn.Module):
         return _dropout(y, 0.2, True, generator, group, rows=rows)
 
 
+def uses_k4(x: torch.Tensor, gru: nn.GRU) -> bool:
+    """Whether the encoder's GRU over ``x`` runs K4, the hand-written
+    recurrence (``ops/encoder_gru_cuda.py``): input on a card, float32
+    input and weights, and no gradient recorded (grad off, or neither the
+    input nor a weight requires it). Every other call runs ``nn.GRU``: the
+    CPU's, float64's and training's (cuDNN's backward). Decided by what the
+    call can see alone: a call on a card at widths K4 is not built for
+    raises in its wrapper rather than fall back."""
+    weights = list(gru.parameters())
+    return (x.is_cuda and x.dtype == torch.float32
+            and all(w.dtype == torch.float32 for w in weights)
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad
+                          or any(w.requires_grad for w in weights))))
+
+
 class Encoder(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -200,10 +217,21 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor):
         """x (B, T, F_in) -> (enc (B, T, 2H), bridge hidden (B, 2H)).
 
+        The GRU is K4 where ``uses_k4`` holds, else ``nn.GRU``. Counts
+        ``encoder_rows`` (B) and ``encoder_kernel_rows`` (B where K4 ran,
+        else 0) on the enclosing span (``forward/encoder``).
+
         Bridge: per layer tanh(fc([h_fwd; h_bwd])), the two layers
         concatenated.
         """
-        enc, h_n = self.gru(x)  # h_n: (l0 fwd, l0 bwd, l1 fwd, l1 bwd)
+        kernel = uses_k4(x, self.gru)
+        P.count("encoder_rows", x.shape[0])
+        P.count("encoder_kernel_rows", x.shape[0] if kernel else 0)
+        if kernel:
+            enc, h_n = K4.encoder_gru_cuda(self.gru, x.contiguous())
+        else:
+            enc, h_n = self.gru(x)
+        # h_n: (l0 fwd, l0 bwd, l1 fwd, l1 bwd)
         h1 = torch.tanh(self.fc(torch.cat([h_n[0], h_n[1]], dim=-1)))
         h2 = torch.tanh(self.fc(torch.cat([h_n[2], h_n[3]], dim=-1)))
         return enc, torch.cat([h1, h2], dim=-1)

@@ -1,6 +1,7 @@
 """Port layers against the JAX package in float64: the eval conv stack (BN
-folded, torch flatten order), the encoder's two outputs, one attention
-step, and the packed staff-summariser GRU on ragged lengths."""
+folded, torch flatten order), the encoder's two outputs (nn.GRU's, and K4's
+plain twin's at the paper's widths), one attention step, and the packed
+staff-summariser GRU on ragged lengths."""
 
 import numpy as np
 import pytest
@@ -95,6 +96,63 @@ def test_encoder_outputs(weights):
                                          jnp.asarray(feats))
     with torch.no_grad():
         enc, hid = model.encoder(torch.from_numpy(feats))
+    np.testing.assert_allclose(enc.numpy(), np.asarray(enc_ref), atol=ATOL)
+    np.testing.assert_allclose(hid.numpy(), np.asarray(hid_ref), atol=ATOL)
+
+
+def test_encoder_counts_its_rows_on_nn_gru(weights):
+    """On the CPU the encoder's GRU is nn.GRU (K4 runs on a card only): the
+    forward/encoder span counts the batch's rows, none of them K4's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from piano_a2s_tpu_torch.utils import profiling as P
+
+    _, _, model = weights
+    feats = torch.from_numpy(np.random.RandomState(6).randn(
+        B, T_SPEC, CFG.conv_feature_size))
+    P.RECORDER.clear()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]):
+        with P.span("forward/encoder", ranged=False):
+            model.encoder(feats)
+    span, = [r for r in P.records(0, 2 ** 63) if r.name == "forward/encoder"]
+    P.RECORDER.clear()
+    assert not tst.uses_k4(feats, model.encoder.gru)
+    assert span.counts == {"encoder_rows": B, "encoder_kernel_rows": 0}
+
+
+@pytest.mark.parametrize("rows", [8, 16, 24])
+def test_encoder_gru_twin_matches_the_jax_package(x64, monkeypatch, rows):
+    """K4's plain twin (tests/test_torch_encoder_gru_cuda.py) at its own
+    widths (input and hidden 256), run through Encoder.forward's K4 branch,
+    against the JAX package's encoder_apply on the same weights: enc and
+    the bridge from h_n, on one chunk of rows and several, rows padded past
+    B."""
+    from test_torch_encoder_gru_cuda import encoder_gru_plain
+
+    from piano_a2s_tpu_torch.ops import encoder_gru_cuda as K4
+
+    torch.manual_seed(3)
+    encoder = tst.Encoder(tst.ModelConfig()).double().eval()
+    gru = encoder.gru
+
+    def direction(layer, suffix):
+        return {k: getattr(gru, f"{kind}_{k[2:]}_l{layer}{suffix}")
+                .detach().numpy().T for k, kind in (
+                    ("w_ih", "weight"), ("w_hh", "weight"),
+                    ("b_ih", "bias"), ("b_hh", "bias"))}
+
+    params = {f"l{layer}_{d}": direction(layer, suffix)
+              for layer in (0, 1) for d, suffix in (("fwd", ""),
+                                                    ("bwd", "_reverse"))}
+    params["fc"] = {"w": encoder.fc.weight.detach().numpy().T,
+                    "b": encoder.fc.bias.detach().numpy()}
+    x = np.random.RandomState(rows).randn(10, 5, K4.INPUT)
+    enc_ref, hid_ref = jst.encoder_apply(params, jnp.asarray(x))
+    monkeypatch.setattr(tst, "uses_k4", lambda *a: True)
+    monkeypatch.setattr(K4, "encoder_gru_cuda",
+                        lambda g, inp: encoder_gru_plain(g, inp, rows))
+    with torch.no_grad():
+        enc, hid = encoder(torch.from_numpy(x))
     np.testing.assert_allclose(enc.numpy(), np.asarray(enc_ref), atol=ATOL)
     np.testing.assert_allclose(hid.numpy(), np.asarray(hid_ref), atol=ATOL)
 
