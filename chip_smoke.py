@@ -24,7 +24,11 @@ Phases, each of which raises on failure:
       only: its log-probs against the torch-op step run in float64 (at
       most twice the torch-op step's own float32 error, or 1e-5), then
       both steps' time a step, each replayed as a CUDA graph of 16 steps
-      (CUDA events), beside the step's bound (its bytes at 3.35 TB/s).
+      (CUDA events), beside the step's bound (its bytes at 3.35 TB/s);
+      then K2's time a step at (16, 1201) with both staves and the upper
+      one only and at (64, 1201), in graphs of 16 steps and as uncaptured
+      single steps (``python3 chip_smoke.py --k2-times`` runs these alone
+      and prints them as one JSON line).
   (c3) K3, the staff-summary kernel (csrc/staff_summary.cu), at (S, B, T)
       = (2, 16, 398) with lengths 398 and 189: its build and ptxas lines,
       its summaries against float64 (at most twice the packed float32
@@ -465,6 +469,11 @@ def phase_kernel_vs_plain(torch, tvqt, launches_of):
 
 
 K2_ROWS, K2_FRAMES, K2_STEPS = 16, 1201, 16
+# (c2)'s timed cases: (label, rows, the step the timed steps start at);
+# from step 200 the lower staff (cap 189) no longer steps.
+K2_TIMED = (("16 rows, both staves", 16, 0),
+            ("16 rows, upper staff only", 16, 200),
+            ("64 rows, both staves", 64, 0))
 
 
 def note_step_bound(cfg, rows, frames, staves):
@@ -604,7 +613,71 @@ def phase_note_step(torch, tmodels):
     finally:
         tst.uses_k2 = k2
     check(note_step_cuda.launches > 0, "(c2) K2 launched (its eager steps)")
+    results["k2_times"] = k2_step_times(torch, tmodels)
     return results
+
+
+def k2_step_times(torch, tmodels):
+    """K2's milliseconds a step in each K2_TIMED case at K2_FRAMES frames
+    (CUDA events, median of 20 runs of K2_STEPS steps): replayed as a CUDA
+    graph (``graph_ms``, the greedy decode's path on a card) and as
+    uncaptured single steps launched back to back from the host
+    (``single_ms``, the data-parallel decode's path, there with a stop read
+    after each step)."""
+    from piano_a2s_tpu_torch.models import score_transcription as tst
+    dev = torch.device("cuda")
+    cfg = tmodels.ModelConfig()
+    model = tmodels.ScoreTranscription(cfg)
+    model.load_state_dict(tmodels.init_state_dict(cfg, seed=0))
+    dec = model.decoder.to(dev)
+    with torch.no_grad():
+        for d in (dec.upper_decoder, dec.lower_decoder):
+            d.out.bias[cfg.eos] -= 20.0   # no group stops while timed
+    rng = np.random.RandomState(7)
+    out = {}
+    with torch.inference_mode():
+        p = tst.dual_decode_params(dec.upper_decoder, dec.lower_decoder, cfg)
+        for label, rows, t0 in K2_TIMED:
+            enc = torch.tensor(np.tanh(rng.randn(rows, K2_FRAMES, 512))
+                               .astype(np.float32), device=dev)
+            h0 = torch.tensor(np.tanh(rng.randn(rows, 512))
+                              .astype(np.float32), device=dev)
+            e, ep = dec._note_operands(enc, None)
+            st = tst._DecodeState(p, cfg, e, None).bind(p)
+            sos = torch.full((2, rows), cfg.sos, dtype=torch.long,
+                             device=dev)
+            st.reset(p, h0, tst._tok_proj(p, sos))
+            logp = torch.empty((K2_STEPS, 2, rows, cfg.vocab_size),
+                               device=dev)
+            pred = torch.empty((K2_STEPS, 2, rows), dtype=torch.long,
+                               device=dev)
+
+            def steps():
+                st.t.fill_(t0)
+                for i in range(K2_STEPS):
+                    tst._masked_step(p, cfg, e, ep, st, logp[i], pred[i])
+
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                steps()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with tst._workspaces_in_pool(), torch.cuda.graph(graph,
+                                                             stream=side):
+                steps()
+            single = [cuda_ms(steps) / K2_STEPS]
+            replayed = [cuda_ms(graph.replay) / K2_STEPS,
+                        cuda_ms(graph.replay) / K2_STEPS]
+            single.append(cuda_ms(steps) / K2_STEPS)
+            out[label] = {"graph_ms": float(np.median(replayed)),
+                          "single_ms": float(np.median(single)),
+                          "graph_runs_ms": replayed,
+                          "single_runs_ms": single}
+            print(f"(c2) K2 at ({rows}, {K2_FRAMES}), {label}: "
+                  f"{replayed} ms a step in graphs of {K2_STEPS}, "
+                  f"{single} ms as single steps launched back to back")
+    return out
 
 
 # K3's calls a timed stretch: back to back, so that the host's part of a
@@ -3369,7 +3442,8 @@ def main():
                     "(the XLA while_loop step; no Pallas kernel)",
         "design": "4 launches a step: one pass over enc and enc_proj2 with "
                   "split-T online softmax, the GRU, the head with the next "
-                  "query, the argmax and masked updates",
+                  "query, the argmax and masked updates; the attention pass "
+                  "a programmatic dependent launch of the step before",
         "launches": sum(k2.values()), "launches_by_path": k2,
         "by_case": k2_results,
         "bound_by": "bytes", "library_ms": None}, {
@@ -3399,7 +3473,23 @@ def main():
     return 0
 
 
+def k2_times_main():
+    """``--k2-times``: (c2)'s K2 step times alone, as one JSON line (to run
+    two trees of the package on one card in turns)."""
+    import torch
+    import piano_a2s_tpu_torch.models as tmodels
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    times = k2_step_times(torch, tmodels)
+    print(json.dumps({"card": smi.stdout.strip(), "repo": REPO_DIR,
+                      "k2_times": times}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-dp-rank"]:
         sys.exit(train_dp_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--k2-times"]:
+        sys.exit(k2_times_main())
     sys.exit(main())

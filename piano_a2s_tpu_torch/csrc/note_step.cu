@@ -49,10 +49,33 @@
 // float4s before the tile, and the slices are summed in a fixed order.
 // Nothing uses float atomics, so a step is deterministic.
 //
-// Measured (H100 SXM, 700 W; PERF.md): at 16 rows 56-61 us a step with
-// both staves, 43-46 us with the upper one only, against 248 us for the
-// torch-op step; the attention pass is about 35 us of it (2.3 TB/s), and
-// each of the other three launches 3-10 us, mostly fixed latency.
+// The step boundary is a programmatic dependent launch (PDL): attn_kernel
+// is launched with cudaLaunchAttributeProgrammaticStreamSerialization, and
+// final_kernel lets it start once its head loads are done (after its first
+// block reduction, griddepcontrol.launch_dependents), so that attn's
+// launch, block ramp and first loads overlap the rest of final and, in a
+// graph, the edge between steps. Before its wait (griddepcontrol.wait,
+// which returns once final has completed and its writes are visible) attn
+// writes no global memory and reads only v and enc_proj2, which no K2
+// kernel writes, and t, which gru_kernel wrote three launches back
+// (complete before proj started): t under a staff's cap says which staves'
+// first enc_proj2 row to load; a staff found active after the wait that t
+// ruled out (a caller wrote t in the launch right before the step) loads it
+// then. enc's first row (whose loads before the wait slowed final), the
+// query (proj's hq) and the stop flags (final's done) are read after the
+// wait. So the launch right before a step must not write v or enc_proj2: a
+// decode writes them when it binds its operands, several launches ahead.
+// gru, proj and final keep plain launches: their blocks cannot be resident
+// beside the kernel before them (two attn blocks fill an SM's registers; a
+// gru and a proj block do not fit together; released gru blocks double up
+// two an SM), and a dependent's wait is released later than a plain launch
+// starts (PERF.md, K2's programmatic dependent launch).
+//
+// Measured (H100 SXM, 700 W; PERF.md): at 16 rows 53.8-54.8 us a step with
+// both staves and 41.0-41.7 us with the upper one only, 161-163 us at 64
+// rows (56.5-57.0, 42.7-42.9 and 166 us without PDL), against 248 us for
+// the torch-op step; the attention pass is about 32 us of it (2.3 TB/s),
+// and gru, proj and final 7, 10 and 4 us, mostly fixed latency.
 //
 // Numerics: float32 throughout, FFMA products, tanhf / expf / logf of the
 // CUDA math library (no fast-math, no .approx intrinsics), float32
@@ -148,6 +171,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Programmatic dependent launch (attn_kernel, see the design note): wait
+// until the kernel before has completed and its writes are visible (a no-op
+// in a kernel launched without the attribute); let the kernel after this
+// one start before this one ends. "memory": no load or store moves across.
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+__device__ __forceinline__ void release_dependent_grid() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
@@ -223,38 +258,10 @@ __global__ void __launch_bounds__(ATTN_THREADS, 2) attn_kernel(const Args a) {
   __shared__ float chunk_m[2][MAX_CHUNKS], chunk_l[2][MAX_CHUNKS];
   __shared__ float scale[2][MAX_CHUNKS], total[2];
   __shared__ float4 qv[2][2][H / 4];  // per staff: q, v
+  __shared__ int may[2];  // per staff: t under its cap, before the wait
 
   const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  if (tid == 0) {
-    act[0] = pair_active(a, 0, b);
-    act[1] = pair_active(a, 1, b);
-    if (c == 0) {
-      a.mask[b] = act[0];
-      a.mask[a.B + b] = act[1];
-    }
-  }
-  __syncthreads();
-  const bool on[2] = {act[0] != 0, act[1] != 0};
-  if (!on[0] && !on[1]) return;  // every block of the row returns here
-
-  for (int i = tid; i < 2 * H / 4; i += ATTN_THREADS) {
-    const int st = i / (H / 4), f = i % (H / 4);
-    if (on[st]) {
-      qv[st][0][f] = reinterpret_cast<const float4*>(
-          a.hq + (size_t)(st * a.B + b) * NQ + G)[f];
-      qv[st][1][f] = reinterpret_cast<const float4*>(a.v + st * H)[f];
-    }
-  }
-  __syncthreads();
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float4 acc[2][DL];
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int i = 0; i < DL; ++i) acc[s][i] = make_float4(0.f, 0.f, 0.f, 0.f);
-
   const float4* enc = reinterpret_cast<const float4*>(a.enc) +
                       (size_t)b * a.T * (D / 4);
   const float4* ep0 = reinterpret_cast<const float4*>(a.enc_proj2) +
@@ -263,23 +270,87 @@ __global__ void __launch_bounds__(ATTN_THREADS, 2) attn_kernel(const Args a) {
   const int t0 = c * a.chunk_frames;
   const int t1 = min(a.T, t0 + a.chunk_frames);
   // Each warp walks its frames with the next frame's loads in flight while
-  // it computes the current one.
+  // it computes the current one: its enc row, and a staff's enc_proj2 row
+  // where on0 / on1 say.
   float4 x[DL], p0[HL], p1[HL];
-  auto load = [&](int t, float4 (&xx)[DL], float4 (&q0)[HL],
-                  float4 (&q1)[HL]) {
+  auto load_enc = [&](int t, float4 (&xx)[DL]) {
 #pragma unroll
     for (int i = 0; i < DL; ++i)
       xx[i] = __ldcs(enc + (size_t)t * (D / 4) + lane + 32 * i);
+  };
+  auto load_proj = [&](int t, float4 (&q0)[HL], float4 (&q1)[HL], bool on0,
+                       bool on1) {
 #pragma unroll
     for (int i = 0; i < HL; ++i) {
-      if (on[0]) q0[i] = __ldcs(ep0 + (size_t)t * (H / 4) + lane + 32 * i);
-      if (on[1]) q1[i] = __ldcs(ep1 + (size_t)t * (H / 4) + lane + 32 * i);
+      if (on0) q0[i] = __ldcs(ep0 + (size_t)t * (H / 4) + lane + 32 * i);
+      if (on1) q1[i] = __ldcs(ep1 + (size_t)t * (H / 4) + lane + 32 * i);
     }
   };
-  if (t0 + warp < t1) load(t0 + warp, x, p0, p1);
+
+  // Before the wait for final_kernel: which staves may step (t under the
+  // cap; t is gru_kernel's, complete since proj_kernel started), v, and
+  // the warp's first enc_proj2 row of those staves.
+  if (tid == 0) {
+    const int64_t t = *a.t;
+    may[0] = t < a.caps[0];
+    may[1] = t < a.caps[1];
+  }
+  for (int i = tid; i < 2 * H / 4; i += ATTN_THREADS) {
+    const int st = i / (H / 4), f = i % (H / 4);
+    qv[st][1][f] = reinterpret_cast<const float4*>(a.v + st * H)[f];
+  }
+  __syncthreads();
+  const bool pre[2] = {may[0] != 0, may[1] != 0};
+  const bool first = t0 + warp < t1;  // the warp has a frame
+  if (first) load_proj(t0 + warp, p0, p1, pre[0], pre[1]);
+  wait_for_prior_grid();
+  // After it (its loads would slow final_kernel beside), the warp's first
+  // enc row; the query of the staves that may step, beside the stop flags'
+  // reads.
+  if (first && (pre[0] || pre[1])) load_enc(t0 + warp, x);
+  if (tid == 0) {
+    act[0] = pair_active(a, 0, b);
+    act[1] = pair_active(a, 1, b);
+    if (c == 0) {
+      a.mask[b] = act[0];
+      a.mask[a.B + b] = act[1];
+    }
+  }
+  auto load_q = [&](bool on0, bool on1) {
+    for (int i = tid; i < 2 * H / 4; i += ATTN_THREADS) {
+      const int st = i / (H / 4), f = i % (H / 4);
+      if (st ? on1 : on0)
+        qv[st][0][f] = reinterpret_cast<const float4*>(
+            a.hq + (size_t)(st * a.B + b) * NQ + G)[f];
+    }
+  };
+  load_q(pre[0], pre[1]);
+  __syncthreads();
+  const bool on[2] = {act[0] != 0, act[1] != 0};
+  if (!on[0] && !on[1]) return;  // every block of the row returns here
+  // A staff that steps though t said otherwise (a caller wrote t in the
+  // launch right before the step): its query and first frame now.
+  const bool late[2] = {on[0] && !pre[0], on[1] && !pre[1]};
+  if (late[0] || late[1]) {  // the same in every thread of the block
+    load_q(late[0], late[1]);
+    if (first && !pre[0] && !pre[1]) load_enc(t0 + warp, x);
+    if (first) load_proj(t0 + warp, p0, p1, late[0], late[1]);
+    __syncthreads();
+  }
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float4 acc[2][DL];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int i = 0; i < DL; ++i) acc[s][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
   for (int t = t0 + warp; t < t1; t += WARPS) {
     float4 nx[DL], n0[HL], n1[HL];
-    if (t + WARPS < t1) load(t + WARPS, nx, n0, n1);
+    if (t + WARPS < t1) {
+      load_enc(t + WARPS, nx);
+      load_proj(t + WARPS, n0, n1, on[0], on[1]);
+    }
     if (on[0])
       online(m[0], l[0], acc[0], frame_score(p0, qv[0][0], qv[0][1], lane), x);
     if (on[1])
@@ -648,6 +719,10 @@ __global__ void __launch_bounds__(FINAL_THREADS) final_kernel(const Args a) {
     mx = fmaxf(mx, x[j]);
   }
   mx = block_reduce(mx, true, buf);
+  // The next step's attn_kernel may start now (it waits for this grid
+  // before it reads what this writes): its launch and first loads overlap
+  // the rest of this kernel, whose head loads are done.
+  release_dependent_grid();
   float se = 0.f;
 #pragma unroll
   for (int j = 0; j < VL; ++j)
@@ -709,6 +784,24 @@ __global__ void __launch_bounds__(FINAL_THREADS) final_kernel(const Args a) {
 
 int tiles_of(int rows) { return (rows + RT - 1) / RT; }
 
+// attn_kernel on `stream` as a programmatic dependent launch of the launch
+// before it (see the design note); 0 or the cudaError_t.
+int launch_attn(const Args& a, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(a.chunks, a.B);
+  config.blockDim = dim3(ATTN_THREADS);
+  config.dynamicSmemBytes = ATTN_SMEM;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&config, attn_kernel, a);
+  if (err != cudaSuccess) cudaGetLastError();  // not left for the next call
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -747,8 +840,7 @@ int note_step_prologue(const Args* a, void* stream) {
 int note_step_launch(const Args* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  attn_kernel<<<dim3(a->chunks, a->B), ATTN_THREADS, ATTN_SMEM, st>>>(*a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (const int e = launch_attn(*a, st)) return e;
   gru_kernel<<<dim3(D / GRU_UNITS, 2, tiles_of(a->B)), GRU_THREADS, GRU_SMEM,
                st>>>(*a);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);

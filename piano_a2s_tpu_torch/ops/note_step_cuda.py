@@ -11,6 +11,12 @@ step is an XLA while_loop); the model's torch-op step
 operands, and the tests hold a plain twin of its algorithm against that
 step (``tests/test_torch_note_step_cuda.py``).
 
+A step's attention kernel is a programmatic dependent launch of the launch
+before it: it starts while that one runs and reads v and enc_proj2 (and t,
+as a hint) before waiting for it, so the launch right before a step must
+not write v or enc_proj2 (a decode binds its operands several launches
+ahead).
+
 ``note_step_cuda.launches`` counts the kernels launched: 4 a step, 1 a
 prologue. A call while a CUDA graph is being captured launches nothing and
 counts nothing; the graph's owner counts its replays (``count_launches``).

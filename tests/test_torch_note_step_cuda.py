@@ -479,3 +479,139 @@ def test_a_graph_decode_on_k2_equals_the_eager_loop_on_the_card(
     eager_steps = sum(span.counts["note_steps"] for span in eager_notes)
     assert eager_launches == K2.STEP_LAUNCHES * eager_steps + cfg.max_bars
     assert eager_attn == eager_steps
+
+
+# Blocks of the race test: (rows, stop-group chunk, the lower staff's
+# steps left before its cap where the block starts there (None: at step
+# 0), whether an upper-staff pair stops inside the block).
+RACE_CASES = {"16 rows, both staves": (16, None, None, False),
+              "16 rows, lower cap in the block": (16, None, 6, False),
+              "1 row": (1, None, None, False),
+              "64 rows": (64, 16, None, False),
+              "64 rows, a group stops in the block": (64, 16, None, True)}
+RACE_REPLAYS = 50
+
+
+def _race_block(p, cfg, enc, ep2, st):
+    """(run, logp, pred): ``run(graph)`` restores the decode state ``st``
+    as it is now (the prologue's query included) and runs one block of
+    GRAPH_STEPS K2 steps from it, as a replay of ``graph`` or, where
+    ``graph`` is None, as single steps with the card synchronised after
+    each; it returns the state and outputs after the block, and the state
+    before each single step."""
+    B, steps = enc.shape[0], tst.GRAPH_STEPS
+    logp = torch.empty((steps, 2, B, cfg.vocab_size), device=enc.device)
+    pred = torch.empty((steps, 2, B), dtype=torch.long, device=enc.device)
+    start = _snapshot(st)
+
+    def block():
+        for i in range(steps):
+            tst._masked_step(p, cfg, enc, ep2, st, logp[i], pred[i])
+
+    def run(graph):
+        for k, v in start.items():
+            getattr(st, k).copy_(v)
+        logp.fill_(7.0)
+        pred.fill_(-1)
+        K2.note_step_prologue(p, st.work, st.h2)
+        before = []
+        if graph is None:
+            for i in range(steps):
+                torch.cuda.synchronize()
+                before.append(_snapshot(st))
+                tst._masked_step(p, cfg, enc, ep2, st, logp[i], pred[i])
+        else:
+            graph.replay()
+        torch.cuda.synchronize()
+        return dict(_snapshot(st), logp=logp.clone(), pred=pred.clone()), \
+            before
+    return run, block
+
+
+def _capture(block, dev):
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        block()                                  # warm-up, as the decode
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with tst._workspaces_in_pool(), torch.cuda.graph(graph, stream=side):
+        block()
+    return graph
+
+
+def _active_pairs(logp):
+    """(steps, 2, B) bool: the rows each step computed (an inactive row's
+    log-probs are all zero)."""
+    return logp.abs().sum(dim=-1) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RACE_CASES))
+def test_k2_replays_equal_synchronised_steps_on_the_card(card, case):
+    """Each step's attention kernel starts before the step before it ends
+    (programmatic dependent launch) and waits on it before it reads what it
+    writes. A replayed block of GRAPH_STEPS steps must give, bit for bit,
+    what the same steps give one at a time with the card synchronised after
+    each,
+    and the same bits on every one of RACE_REPLAYS replays from one state
+    (K2 has no float atomics, so a read that races a write shows as a
+    change); each step within the card's tolerance of the plain twin in
+    float64 from the state K2 reached."""
+    rows, chunk, lower_left, stops = RACE_CASES[case]
+    cfg = tst.ModelConfig()
+    t0 = cfg.max_length[1] - lower_left if lower_left else 0
+    p, enc, ep2, h0 = _operands(cfg, rows, 1201, 11 + rows, torch.float32,
+                                card, eos_bias=-20.0)   # nothing stops
+    with torch.inference_mode():
+        st = _state(p, cfg, enc, h0, chunk, "both")
+        st.t.fill_(t0)
+        if stops:
+            # Every upper-staff group waits on one row: its pair stops at
+            # that row's first <eos>.
+            per = rows // st.groups
+            st.done[0] = True
+            st.done[0, ::per] = False
+        run, block = _race_block(p, cfg, enc, ep2, st)
+        if stops:
+            # The upper <eos> raised until some pair stops in the block.
+            base = p.b_out[0, cfg.eos].item()
+            for raise_by in np.arange(20.5, 80.0, 0.5):
+                p.b_out[0, cfg.eos] = base + raise_by
+                on = _active_pairs(run(None)[0]["logp"])
+                if (on[0, 0] & ~on[-1, 0]).any():
+                    break
+            assert (on[0, 0] & ~on[-1, 0]).any() and on[:, 1].all()
+        single, before = run(None)
+        graph = _capture(block, card)
+        first, _ = run(graph)
+        for k, want in single.items():
+            assert torch.equal(first[k], want), k
+        for r in range(RACE_REPLAYS):
+            again, _ = run(graph)
+            for k, want in first.items():
+                assert torch.equal(again[k], want), (r, k)
+    assert int(first["t"]) == t0 + tst.GRAPH_STEPS
+    on = _active_pairs(first["logp"])
+    if lower_left:
+        assert on[:lower_left, 1].all() and not on[lower_left:, 1].any()
+
+    p64 = tst.DualDecodeParams(**{k: v.double() for k, v in vars(p).items()})
+    enc64, ep64 = enc.double(), ep2.double()
+    for i, state in enumerate(before):
+        s64 = {k: v.double() if v.is_floating_point() else v.clone()
+               for k, v in state.items()}
+        lp64 = torch.empty_like(first["logp"][i], dtype=torch.float64)
+        pr64 = torch.empty_like(first["pred"][i])
+        note_step_plain(p64, enc64, ep64, s64["h2"], s64["tok2"],
+                        s64["lengths"], s64["done"], s64["t"], st.caps,
+                        lp64, pr64, cfg.eos, st.groups)
+        lp = first["logp"][i].double()
+        tol = CARD_ULPS * max(1.0, lp64.abs().max().item())
+        assert (lp - lp64).abs().max().item() <= tol, i
+        assert torch.equal(_active_pairs(lp), _active_pairs(lp64)), i
+        top2 = lp64.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > tol
+        assert torch.equal(first["pred"][i][clear], pr64[clear]), i
+        after = before[i + 1] if i + 1 < len(before) else first
+        assert (after["h2"].double() - s64["h2"]).abs().max().item() <= 1e-5
