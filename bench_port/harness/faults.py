@@ -10,9 +10,19 @@ import contextlib
 
 def _alter_served_token():
     """The greedy step's first row of the upper staff emits the next id
-    over from its best token."""
+    over from its best token, in every step where that row decodes, and
+    the next step conditions on it. Planted in both steps of the port: the
+    torch-op step's ``_fast_step`` (the CPU, bf16, float64), and after
+    K2's ``note_step_cuda`` (a card's float32 step, which picks its token
+    on the card), where the row's token, its projection ``tok2`` and its
+    stop are rewritten as the torch-op step would have made them from the
+    altered token. Both are looked up on their module at every step, so a
+    graph captured while the fault is planted holds it."""
+    import torch
     from piano_a2s_tpu_torch.models import score_transcription as st
-    inner = st._fast_step
+    from piano_a2s_tpu_torch.ops import note_step_cuda as K2
+    from piano_a2s_tpu_torch.ops.note_step import step_mask
+    inner, k2 = st._fast_step, K2.note_step_cuda
 
     def step(*args):
         h, logp, pred = inner(*args)
@@ -20,7 +30,29 @@ def _alter_served_token():
         pred[0, 0] = (pred[0, 0] + 1) % logp.shape[-1]
         return h, logp, pred
 
-    return [(st, "_fast_step", step)]
+    class K2Step:
+        """K2's step, then the fault; its launch count is K2's own."""
+        launches = property(lambda self: k2.launches,
+                            lambda self, n: setattr(k2, "launches", n))
+
+        def __call__(self, p, work, enc, enc_proj2, h2, tok2, lengths, done,
+                     t, caps, logp, pred, eos, live=None):
+            # The row's mask as the torch-op step makes it, and its stop
+            # before the step.
+            m = step_mask(done, t, caps, work.groups, live)[0, 0]
+            was_done, was_len = done[0, 0].clone(), lengths[0, 0].clone()
+            k2(p, work, enc, enc_proj2, h2, tok2, lengths, done, t, caps,
+               logp, pred, eos, live)
+            tok = torch.where(m, (pred[0, 0] + 1) % logp.shape[-1],
+                              pred[0, 0])
+            pred[0, 0] = tok
+            is_eos = m & (tok == eos)
+            done[0, 0] = was_done | is_eos
+            lengths[0, 0] = torch.where(is_eos, t, was_len)
+            tok2[0, 0] = torch.where(m, st._tok_proj(p, pred)[0, 0],
+                                     tok2[0, 0])
+
+    return [(st, "_fast_step", step), (K2, "note_step_cuda", K2Step())]
 
 
 def _half_batch_served():

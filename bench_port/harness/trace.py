@@ -5,8 +5,12 @@ activity) inside a ``bench/stretch`` span, and reads the raw events
 without building the profiler's event tree (a decoded batch is some
 hundred thousand launches):
 
-- device activity: kernels, copies and sets, with their launch's host
-  time (by correlation id);
+- device activity: kernels, copies and sets, each placed at the host
+  time of its own launch: the CUDA API call whose correlation id
+  it carries (``cudaLaunchKernel``, ``cudaLaunchKernelExC``,
+  ``cudaMemcpyAsync``, ``cudaMemsetAsync``; for every kernel of a replayed
+  CUDA graph, the ``cudaGraphLaunch``). An activity whose launch the trace
+  lacks is placed at its device start, and counted in ``unplaced``;
 - host spans: the ``record_function`` ranges (the program's own, such as
   ``train_step/backward``, and those the benchmark puts around a layer's
   call, such as ``forward/decoder``);
@@ -53,27 +57,33 @@ def kind(e) -> str:
 
 class Trace:
     def __init__(self, events, main_tid: Optional[int] = None):
-        self.device: List[Tuple[int, int, str, int]] = []  # start, end, name, corr
+        # start, end, name, host time of the launch (else the start)
+        self.device: List[Tuple[int, int, str, int]] = []
         self.spans: Dict[str, List[Tuple[int, int]]] = defaultdict(list)
-        launches: Dict[int, int] = {}
+        self.launch: Dict[int, int] = {}    # correlation id -> host start
+        device = []
         ops: List[Tuple[int, int, str]] = []
         for e in events:
             act = kind(e)
             if act in _DEVICE_ACTIVITY:
-                corr = e.linked_correlation_id() or e.correlation_id()
-                self.device.append((e.start_ns(), e.end_ns(), e.name(), corr))
+                device.append((e.start_ns(), e.end_ns(), e.name(),
+                               e.correlation_id()))
             elif act in _LAUNCH_ACTIVITY:
-                launches[e.correlation_id()] = e.start_ns()
+                self.launch[e.correlation_id()] = e.start_ns()
             elif act == "user_annotation":
                 if main_tid is None or e.start_thread_id() == main_tid:
                     self.spans[e.name()].append((e.start_ns(), e.end_ns()))
             elif act == "cpu_op":
                 if main_tid is None or e.start_thread_id() == main_tid:
                     ops.append((e.start_ns(), e.end_ns(), e.name()))
+        self.unplaced = 0     # activities placed at their device start
+        for s, e, name, corr in device:
+            at = self.launch.get(corr)
+            self.unplaced += at is None
+            self.device.append((s, e, name, s if at is None else at))
         self.device.sort()
         for v in self.spans.values():
             v.sort()
-        self.launch = {d[3]: launches.get(d[3], d[0]) for d in self.device}
         stretch = self.spans.get(STRETCH) or [
             (min(d[0] for d in self.device), max(d[1] for d in self.device))]
         self.t0, self.t1 = stretch[0][0], stretch[-1][1]
@@ -104,17 +114,27 @@ class Trace:
     def kernel_seconds(self, match: Callable[[str], bool]) -> float:
         return sum(e - s for s, e, n, _ in self.device if match(n)) * 1e-9
 
+    def launched_in(self, intervals) -> List[Tuple[int, int, str, int]]:
+        """The device activities launched inside any of the host
+        ``intervals`` ((start, end) pairs, which may overlap or nest)."""
+        merged: List[List[int]] = []
+        for s, e in sorted(intervals):
+            if merged and s <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], e)
+            else:
+                merged.append([s, e])
+        starts = [m[0] for m in merged]
+        out = []
+        for d in self.device:
+            i = bisect.bisect_right(starts, d[3]) - 1
+            if i >= 0 and d[3] < merged[i][1]:
+                out.append(d)
+        return out
+
     def span_device_seconds(self, names) -> float:
         """Device time of the work launched inside spans of ``names``."""
-        ivs = sorted(iv for n in names for iv in self.spans.get(n, ()))
-        starts = [iv[0] for iv in ivs]
-        total = 0
-        for s, e, _, corr in self.device:
-            at = self.launch[corr]
-            i = bisect.bisect_right(starts, at) - 1
-            if i >= 0 and ivs[i][0] <= at < ivs[i][1]:
-                total += e - s
-        return total * 1e-9
+        ivs = [iv for n in names for iv in self.spans.get(n, ())]
+        return sum(e - s for s, e, _, _ in self.launched_in(ivs)) * 1e-9
 
     def span_seconds(self, name: str) -> List[float]:
         return [(e - s) * 1e-9 for s, e in self.spans.get(name, ())]

@@ -1,11 +1,9 @@
 """Share of the note decoders' steps that ran K2, the hand-written step
 kernel (csrc/note_step.cu), read from the device trace: K2's attention
-kernels (one a step) that start inside the program's decode/notes spans,
-over those spans' note_steps counters, in the profiled batches. None where
-none ran there (a program without the kernel, or steps that took the
-torch ops)."""
-
-import bisect
+kernels (one a step) launched inside the program's decode/notes spans
+(``Trace.launched_in``: a replay's kernels at its graph launch), over those
+spans' note_steps counters, in the profiled batches. None where none ran
+there (a program without the kernel, or steps that took the torch ops)."""
 
 from bench_port.harness import program as G
 
@@ -19,11 +17,7 @@ def read(run):
         return None
     notes = G.spans(recs, "decode/notes")
     steps = G.total(notes, "note_steps")
-    ivs = sorted((r.start_ns, r.end_ns) for r in notes)
-    starts = [s for s, _ in ivs]
-    n = 0
-    for s, _, name, _ in run.trace.device:
-        if STEP_KERNEL in name:
-            i = bisect.bisect_right(starts, s) - 1
-            n += i >= 0 and s < ivs[i][1]
+    ivs = [(r.start_ns, r.end_ns) for r in notes]
+    n = sum(STEP_KERNEL in name
+            for _, _, name, _ in run.trace.launched_in(ivs))
     return 100.0 * n / steps if steps and n else None

@@ -1,7 +1,8 @@
-"""Device activities (kernels, copies, sets) that run inside the
-program's decode/notes spans (one a bar: the note decoders' loop) per
-step those spans ran (their note_steps counters), in the profiled
-batches."""
+"""Device activities (kernels, copies, sets) launched inside the
+program's decode/notes spans (one a bar: the note decoders' loop;
+``program.launched``: every kernel of a replayed graph at its graph
+launch) per step those spans ran (their note_steps counters), in the
+profiled batches."""
 
 from bench_port.harness import program as G
 

@@ -1,8 +1,8 @@
 """The note decoders' share of their roofline: the bound of the steps
 the stop groups needed (counts.decode_cost, as decode.step_roofline) over
-the device time of the work that runs inside the program's decode/notes
-spans only (not the bar level, the heads or the staff summaries), in the
-profiled batches."""
+the device time of the work launched inside the program's decode/notes
+spans only (``program.launched``; not the bar level, the heads or the
+staff summaries), in the profiled batches."""
 
 from bench_port.harness import counts, program as G, readers as R
 

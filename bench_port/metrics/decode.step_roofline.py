@@ -1,9 +1,10 @@
 """The greedy decoder's share of its roofline: the bound of the note
 decoders' steps that the stop groups needed (counts.decode_cost) over the
 device time of all the work launched under forward/decoder in the profiled
-batches: the whole decoder's (the bar level, the staff summaries and the
-signature heads too, which the bound leaves out, so the share reads low
-by their part of the time)."""
+batches (``Trace.span_device_seconds``, wherever it runs on the card): the
+whole decoder's (the bar level, the staff summaries and the signature
+heads too, which the bound leaves out, so the share reads low by their
+part of the time)."""
 
 from bench_port.harness import counts, readers as R
 

@@ -1,5 +1,7 @@
-"""Device milliseconds per batch of the ConvStack and the encoder
-(forward/convstack + forward/encoder) in the profiled batches."""
+"""Device milliseconds per batch of the work that the ConvStack and the
+encoder launch (inside the benchmark's forward/convstack and
+forward/encoder ranges, ``Trace.span_device_seconds``), wherever it runs
+on the card, in the profiled batches."""
 
 from bench_port.harness import readers as R
 

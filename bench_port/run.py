@@ -68,6 +68,9 @@ def main(argv=None) -> int:
     if run.trace is not None:
         breakdown = {"device_ops": run.trace.top_kernels(),
                      "idle_gaps": run.trace.idle_by_host()}
+        print(f"bench_port: {run.trace.unplaced} device activities without "
+              f"their launch in the trace, placed at their device start",
+              file=sys.stderr)
     seconds = [u["t1"] - u["t0"] for u in run.timed_units()]
     if seconds:
         print(f"bench_port: {len(seconds)} timed units, ms each: "

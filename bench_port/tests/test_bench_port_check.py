@@ -111,6 +111,135 @@ def test_a_serving_fault_is_not_correct(fault):
         assert not serve_run().correct
 
 
+def _k2_twin(fast):
+    """K2's step as its wrapper takes it (``note_step_cuda``), in the
+    torch ops of the model's torch-op step around ``fast``: the stand-in
+    for the kernel, which the CPU cannot run."""
+    from piano_a2s_tpu_torch.models import score_transcription as tst
+    from piano_a2s_tpu_torch.ops.note_step import step_mask
+
+    def step(p, work, enc, enc_proj2, h2, tok2, lengths, done, t, caps,
+             logp, pred, eos, live=None):
+        m = step_mask(done, t, caps, work.groups, live)
+        t += 1
+        h_new, lp, a = fast(p, enc, enc_proj2, h2, tok2)
+        h2.copy_(torch.where(m[..., None], h_new, h2))
+        logp.copy_(torch.where(m[..., None], lp, 0.0))
+        pred.copy_(torch.where(m, a, 0))
+        is_eos = (a == eos) & m
+        lengths.copy_(torch.where(is_eos, t, lengths))
+        done.copy_(done | is_eos)
+        tok2.copy_(torch.where(m[..., None], tst._tok_proj(p, a), tok2))
+
+    return step
+
+
+def _tiny_decode(case):
+    """Weights, operands and a decode state of the tiny model at the start
+    of a bar, in stop groups of 2 rows: ``case`` "decoding" or "to_eos"
+    (the upper staff's best token is the one before <eos>, so the altered
+    one stops the row)."""
+    import types
+
+    from piano_a2s_tpu_torch.models import score_transcription as tst
+    from bench_port.tests.tiny import TINY_MODEL
+
+    cfg = tst.ModelConfig(**dict(
+        TINY_MODEL, max_length=tuple(TINY_MODEL["max_length"])))
+    torch.manual_seed(3)
+    up, low = tst.NoteDecoder(cfg), tst.NoteDecoder(cfg)
+    B, T, D = 4, 9, 2 * cfg.hidden_size
+    with torch.no_grad():
+        for d in (up, low):
+            for w in d.parameters():
+                w.uniform_(-0.3, 0.3)
+        if case == "to_eos":
+            up.out.bias[cfg.eos - 1] += 50.0
+        p = tst.dual_decode_params(up, low, cfg)
+        enc = torch.tanh(torch.randn(B, T, D))
+        ep2 = torch.stack([torch.nn.functional.linear(
+            enc, d.attn.w_enc, d.attn.attn.bias) for d in (up, low)])
+    st = tst._DecodeState(p, cfg, enc, 2).bind(p)
+    sos = torch.full((2, B), cfg.sos, dtype=torch.long)
+    st.reset(p, torch.tanh(torch.randn(B, D)), tst._tok_proj(p, sos))
+    st.work = types.SimpleNamespace(groups=st.groups)
+    return p, cfg, enc, ep2, st
+
+
+def _steps(p, cfg, enc, ep2, st, n=3):
+    """``n`` masked steps of the model (``_masked_step``): each step's
+    tokens and log-probs, and the state after the last."""
+    from piano_a2s_tpu_torch.models import score_transcription as tst
+
+    out = []
+    for _ in range(n):
+        logp = torch.zeros(2, enc.shape[0], cfg.vocab_size)
+        pred = torch.zeros(2, enc.shape[0], dtype=torch.long)
+        tst._masked_step(p, cfg, enc, ep2, st, logp, pred)
+        out.append((pred, logp))
+    return out, {k: getattr(st, k).clone()
+                 for k in ("h2", "tok2", "lengths", "done", "t")}
+
+
+@pytest.mark.parametrize("case,steps", [("decoding", 3), ("to_eos", 3),
+                                        ("decoding", 14)])
+def test_the_altered_token_bites_on_the_k2_path(monkeypatch, case, steps):
+    """On K2's path (``_masked_step`` calling ``note_step_cuda`` through
+    its module, with a twin of the kernel in its place) the planted fault
+    moves the upper staff's first token in the steps where that row
+    decodes (not past the caps of 12 and 8 steps), and rewrites the row's
+    projected token and stop from the moved one: every step gives what
+    the fault gives on the torch-op path (the CPU's)."""
+    from piano_a2s_tpu_torch.models import score_transcription as tst
+    from piano_a2s_tpu_torch.ops import note_step_cuda as K2
+
+    monkeypatch.setattr(K2, "note_step_cuda", _k2_twin(tst._fast_step))
+    sound, _ = _steps(*_tiny_decode(case), steps)
+    with planted("alter_served_token"):
+        on_cpu = _steps(*_tiny_decode(case), steps)
+        p, cfg, enc, ep2, st = _tiny_decode(case)
+        monkeypatch.setattr(tst, "uses_k2", lambda enc: True)
+        on_k2 = _steps(p, cfg, enc, ep2, st, steps)
+
+    first, want = on_k2[0][0][0], sound[0][0].clone()
+    want[0, 0] = (want[0, 0] + 1) % cfg.vocab_size
+    assert torch.equal(first, want)
+    for (pred_c, logp_c), (pred_k, logp_k) in zip(on_cpu[0], on_k2[0]):
+        assert torch.equal(pred_c, pred_k)
+        assert torch.equal(logp_c, logp_k)
+    for k, v in on_cpu[1].items():
+        assert torch.equal(v, on_k2[1][k]), k
+    decoded = min(steps, cfg.max_length[0])
+    assert not on_k2[0][-1][0].any() or decoded == steps
+    # The row's next input: the last token it emitted.
+    last = on_k2[0][decoded - 1][0]
+    assert torch.equal(on_k2[1]["tok2"][0, 0], tst._tok_proj(p, last)[0, 0])
+    assert bool(on_k2[1]["done"][0, 0]) == (case == "to_eos")
+
+
+@pytest.mark.cuda
+def test_the_altered_token_is_not_correct_on_the_card():
+    """The offline cell on the card, briefly, with the served token altered
+    (K2's step): its check fails."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K2 has no CPU mode)")
+    import json
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    out = subprocess.run(
+        [sys.executable, "bench_port/calibrate.py", "--workload",
+         "serve_f32.offline_caps", "--seeds", "12345", "--seconds", "1",
+         "--fault", "alter_served_token"],
+        cwd=root, capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-3000:]
+    row = json.loads(out.stdout.strip().splitlines()[0])
+    assert row["correct"] is False, row
+    lim = json.load(open(os.path.join(
+        root, "bench_port", "workloads", "serve_f32.offline_caps.json")))[
+        "limits"]
+    assert row["program"]["token_gap"] > lim["token_gap"], row
+
+
 def test_a_returned_value_that_differs_from_the_decode_is_not_correct(
         monkeypatch):
     from piano_a2s_tpu_torch.infer import Transcriber

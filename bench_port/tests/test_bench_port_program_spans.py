@@ -17,8 +17,7 @@ from piano_a2s_tpu_torch.utils import profiling as P
 
 MAIN, OTHER = 7, 8
 NEW = ("decode.launches_per_step", "decode.host_us_per_step",
-       "decode.active_share", "decode.notes_roofline", "transcribe.host_ms",
-       "train.recompute_share")
+       "decode.active_share", "decode.notes_roofline", "transcribe.host_ms")
 CAPS = np.array([[[398], [189]]] * 5)             # (bars, 2, groups)
 
 
@@ -184,25 +183,6 @@ def test_the_decode_readers(recorded):
     assert notes > step
     # 2 ms of preparing and 3 ms of postprocessing in the one batch.
     assert read("transcribe.host_ms", run) == pytest.approx(5.0)
-
-
-def test_the_recompute_share(monkeypatch):
-    t0 = 10 ** 15
-    backward = P.Span("train_step/backward", t0 + 1_000, t0 + 10_001_000,
-                      MAIN, None, {"train.recompute_ns": 1_000_000})
-    # The backward's recomputes: one counted on the main thread (as on the
-    # CPU), three on autograd's thread, one before the stretch.
-    recs = [P.Count("train.recompute_ns", t0 - 5, 10 ** 9, OTHER), backward]
-    recs += [P.Count("train.recompute_ns", t0 + 2_000_000 * i, 1_000_000,
-                     OTHER) for i in (1, 2, 3)]
-    monkeypatch.setattr(P.RECORDER, "_buf", recs)
-    ev = Events()
-    ev.span(STRETCH, t0, t0 + 20_000_000)
-    ev.kernel(t0 + 5, t0 + 10, t0 + 20)
-    run = Run(cell=spec.cell("pretrain_f32.real_lengths"), seed=1,
-              seconds=1.0, traced=True)
-    run.trace = Trace(ev, MAIN)
-    assert read("train.recompute_share", run) == pytest.approx(40.0)
 
 
 def test_a_program_without_records_reads_none(recorded, monkeypatch):
